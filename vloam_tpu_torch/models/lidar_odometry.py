@@ -1,0 +1,168 @@
+"""Scan-to-scan lidar odometry (LO) — port of
+``vloam_tpu/models/lidar_odometry.py``.
+
+Per frame: two outer iterations, each one fused k-NN launch for both
+association problems (sharp vs last less-sharp, flat vs last less-flat),
+the ring-constrained picks from the k-NN lists, and one fused GN launch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from vloam_tpu_torch import geometry as geo
+from vloam_tpu_torch.config import VloamConfig
+from vloam_tpu_torch.ops import lidar_factors
+from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_lidar
+from vloam_tpu_torch.ops.fused_knn import knn_pair
+from vloam_tpu_torch.ops.knn import masked_argmin
+from vloam_tpu_torch.ops.scan_registration import ScanFeatures
+
+
+class LoState(NamedTuple):
+    last_corner: torch.Tensor        # (N_c, 4) xyzw — prev frame's less-sharp cloud
+    last_corner_mask: torch.Tensor   # (N_c,)
+    last_surf: torch.Tensor          # (N_s, 4) — prev frame's less-flat cloud
+    last_surf_mask: torch.Tensor
+    pose_wodom: torch.Tensor         # (7,) accumulated odometry-world pose
+    last_delta: torch.Tensor         # (7,) previous frame-to-frame solution (warm start)
+    initialized: bool                # host flag: the first frame only stores its clouds
+
+
+def init_lo_state(cfg: VloamConfig, device) -> LoState:
+    sc = cfg.scan
+    n_c = sc.n_scans * sc.n_sectors * sc.max_less_sharp
+    n_s = sc.less_flat_cap
+    return LoState(
+        last_corner=torch.zeros((n_c, 4), device=device),
+        last_corner_mask=torch.zeros((n_c,), dtype=torch.bool, device=device),
+        last_surf=torch.zeros((n_s, 4), device=device),
+        last_surf_mask=torch.zeros((n_s,), dtype=torch.bool, device=device),
+        pose_wodom=geo.pose_identity(device),
+        last_delta=geo.pose_identity(device),
+        initialized=False,
+    )
+
+
+def lo_state_from_numpy(state, device) -> LoState:
+    """A reference ``LoState`` whose leaves are NumPy arrays -> this port's
+    state on ``device``."""
+    f = lambda x: torch.tensor(np.asarray(x), device=device)  # noqa: E731
+    return LoState(
+        last_corner=f(state.last_corner), last_corner_mask=f(state.last_corner_mask),
+        last_surf=f(state.last_surf), last_surf_mask=f(state.last_surf_mask),
+        pose_wodom=f(state.pose_wodom), last_delta=f(state.last_delta),
+        initialized=bool(np.asarray(state.initialized)),
+    )
+
+
+def _ring_picks(d2, idx, cand, cfg):
+    """From a k-NN list: the global nearest j, the nearest same-ring-as-j
+    candidate != j, and the nearest nearby-other-ring candidate.
+
+    Returns (d2_1, j1, d2_same, j_same, d2_other, j_other)."""
+    oc = cfg.odom
+    ring_c = torch.floor(cand[:, 3]).to(torch.int64)
+    ring_n = ring_c[idx]                                     # (M, k)
+    ring1 = ring_n[:, 0]
+
+    d2_1, j1 = d2[:, 0], idx[:, 0]
+    same = ring_n == ring1[:, None]
+    same[:, 0] = False
+    dring = torch.abs(ring_n - ring1[:, None]).to(torch.float32)
+    other = (ring_n != ring1[:, None]) & (dring <= oc.nearby_scan)
+
+    d2_s, c_s = masked_argmin(d2, same)
+    d2_o, c_o = masked_argmin(d2, other)
+    j_s = torch.gather(idx, 1, c_s[:, None])[:, 0]
+    j_o = torch.gather(idx, 1, c_o[:, None])[:, 0]
+    return d2_1, j1, d2_s, j_s, d2_o, j_o
+
+
+def _edge_correspondences(d2, idx, sharp, sharp_mask, cand, cfg):
+    """Point-to-line data: closest candidate + nearest candidate on a
+    different but nearby ring."""
+    thr = cfg.odom.distance_sq_threshold
+    d2_1, j1, _, _, d2_2, j2 = _ring_picks(d2, idx, cand, cfg)
+    valid = sharp_mask & (d2_1 < thr) & (d2_2 < thr)
+    return sharp[:, :3], cand[j1, :3], cand[j2, :3], valid
+
+
+def _plane_correspondences(d2, idx, flat, flat_mask, cand, cfg):
+    """Point-to-plane data: closest j, nearest same-ring l != j, nearest
+    nearby-other-ring m."""
+    thr = cfg.odom.distance_sq_threshold
+    d2_1, j1, d2_2, j2, d2_3, j3 = _ring_picks(d2, idx, cand, cfg)
+    valid = flat_mask & (d2_1 < thr) & (d2_2 < thr) & (d2_3 < thr)
+    pj, pl, pm = cand[j1, :3], cand[j2, :3], cand[j3, :3]
+    nrm, d = lidar_factors.plane_from_three_points(pj, pl, pm)
+    # degenerate normals (colinear triples) are rejected
+    ok_n = torch.linalg.vector_norm(torch.linalg.cross(pj - pl, pj - pm, dim=-1), dim=-1) > 1e-10
+    return flat[:, :3], nrm, d, valid & ok_n
+
+
+def solve_f2f(feats: ScanFeatures, cand_corner, cand_corner_mask, cand_surf,
+              cand_surf_mask, pose0, cfg: VloamConfig):
+    """Register ``feats`` against the candidate clouds.  Returns
+    (pose cand_T_feats, counts (2,) edge/plane correspondences)."""
+    oc = cfg.odom
+    if oc.distortion:
+        raise NotImplementedError("OdometryConfig.distortion is not ported yet (ROADMAP A9)")
+    # valid-prefix length: the less-flat buffer may carry masked holes, so
+    # the kernel honours this count AND the mask
+    n_sc = cand_surf_mask.shape[0]
+    surf_n = torch.amax(torch.where(
+        cand_surf_mask, torch.arange(1, n_sc + 1, device=cand_surf_mask.device), 0))
+
+    pose = pose0
+    for _ in range(oc.outer_iters):
+        q_e = geo.pose_apply(pose, feats.sharp[:, :3])
+        q_s = geo.pose_apply(pose, feats.flat[:, :3])
+        (d2e, idxe), (d2s, idxs) = knn_pair(
+            q_e, cand_corner[:, :3], cand_corner_mask, oc.assoc_k,
+            q_s, cand_surf[:, :3], cand_surf_mask, oc.assoc_k_surf,
+            b_counts=(None, surf_n),
+        )
+        p_e, a_e, b_e, v_e = _edge_correspondences(
+            d2e, idxe, feats.sharp, feats.sharp_mask, cand_corner, cfg)
+        p_s, n_s, d_s, v_s = _plane_correspondences(
+            d2s, idxs, feats.flat, feats.flat_mask, cand_surf, cfg)
+        pose = solve_pose_gn_lidar(
+            pose, (p_e, a_e, b_e, v_e), (p_s, n_s, d_s, v_s),
+            oc.inner_iters, oc.huber_delta, oc.lm_lambda,
+        )
+    counts = torch.stack([v_e.sum(), v_s.sum()]).to(torch.int32)
+    return pose, counts
+
+
+def lo_step(state: LoState, feats: ScanFeatures, cfg: VloamConfig):
+    """One LO frame.  Returns (new_state, f2f pose last_T_curr, world pose,
+    corr_counts (2,)).  The previous solution warm-starts the solve (the
+    decoupled mode; a VO prior comes with the VO port)."""
+    dev = state.pose_wodom.device
+    if state.initialized:
+        delta, corr_counts = solve_f2f(
+            feats, state.last_corner, state.last_corner_mask,
+            state.last_surf, state.last_surf_mask, state.last_delta, cfg,
+        )
+        pose_w = geo.pose_compose(state.pose_wodom, delta)
+        last_delta = delta
+    else:
+        delta = geo.pose_identity(dev)
+        corr_counts = torch.zeros((2,), dtype=torch.int32, device=dev)
+        pose_w = state.pose_wodom
+        last_delta = state.last_delta
+
+    new_state = LoState(
+        last_corner=feats.less_sharp,
+        last_corner_mask=feats.less_sharp_mask,
+        last_surf=feats.less_flat,
+        last_surf_mask=feats.less_flat_mask,
+        pose_wodom=pose_w,
+        last_delta=last_delta,
+        initialized=True,
+    )
+    return new_state, delta, pose_w, corr_counts
