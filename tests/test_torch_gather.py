@@ -1,0 +1,50 @@
+"""The port's plain patch gather (the CUDA kernel B2's plain version) against
+the JAX ``gather_patches_pair`` on its CPU path (``_slice_patches``).
+
+The gather is an exact copy, so the arrays must be equal, at the three KLT
+pyramid level sizes with N = 1024 corners (P = 32), the extreme legal
+corners included.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vloam_tpu.ops.pallas_gather import gather_patches_pair as jax_gather_pair
+from vloam_tpu_torch.ops import patch_gather
+
+P, N = 32, 1024
+
+
+def _inputs(rng, h, w):
+    img_a = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    img_b = rng.uniform(0, 255, (h, w)).astype(np.float32)
+
+    def corners():
+        c = np.stack([rng.integers(0, w - P + 1, N), rng.integers(0, h - P + 1, N)], -1)
+        c[:4] = [[0, 0], [w - P, 0], [0, h - P], [w - P, h - P]]
+        return c.astype(np.int32)
+
+    return img_a, img_b, corners(), corners()
+
+
+@pytest.mark.parametrize("h,w", [(376, 1248), (188, 624), (94, 312)])
+def test_plain_equals_jax(h, w, rng):
+    img_a, img_b, ca, cb = _inputs(rng, h, w)
+    want = jax_gather_pair(*(jnp.array(x) for x in (img_a, img_b, ca, cb)), P)
+    got = patch_gather.gather_patches_pair(*(torch.tensor(x) for x in (img_a, img_b, ca, cb)), P)
+    for g, w_ in zip(got, want):
+        assert g.shape == (N, P, P)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    assert patch_gather.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("bad", [(-1, 0), (0, -1), (1248 - P + 1, 0), (0, 376 - P + 1)])
+def test_out_of_range_corner_raises(bad, rng):
+    img_a, img_b, ca, cb = _inputs(rng, 376, 1248)
+    cb[7] = bad
+    with pytest.raises(ValueError):
+        patch_gather.gather_patches_pair_reference(
+            *(torch.tensor(x) for x in (img_a, img_b, ca, cb)), P)
+

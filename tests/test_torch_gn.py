@@ -1,10 +1,10 @@
-"""The port's plain lidar GN solve (the CUDA GN kernel's plain version)
-against the JAX reference: the jacfwd ``solve_pose_gn`` on the CPU path,
-and the Pallas GN kernel in interpret mode.
+"""The port's plain GN solves (the CUDA GN kernels' plain versions) against
+the JAX reference: the jacfwd ``solve_pose_gn`` on the CPU path, and the
+Pallas GN kernels in interpret mode.
 
-Same problem and bounds as tests/test_pallas_gn.py: translation atol 2e-3
-and |q.q'| > 1 - 1e-5 (same math, different op order and analytic vs
-forward-mode Jacobians).
+Same problems and bounds as tests/test_pallas_gn.py: lidar translation atol
+2e-3, VO translation atol 5e-3, both |q.q'| > 1 - 1e-5 (same math,
+different op order and analytic vs forward-mode Jacobians).
 """
 
 import jax.numpy as jnp
@@ -14,10 +14,11 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from vloam_tpu import geometry as geo
-from vloam_tpu.ops import lidar_factors
+from vloam_tpu.ops import lidar_factors, vo_factors
 from vloam_tpu.ops.gauss_newton import solve_pose_gn
-from vloam_tpu.ops.pallas_gn import solve_pose_gn_lidar
+from vloam_tpu.ops.pallas_gn import solve_pose_gn_lidar, solve_pose_gn_vo
 from vloam_tpu_torch.ops import fused_gn
+from vloam_tpu_torch.ops import vo_factors as tvo_factors
 
 ITERS, HUBER, LM = 4, 0.1, 1e-4
 
@@ -119,3 +120,96 @@ def test_all_invalid_keeps_pose(rng):
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, pose0, atol=1e-3)
     _assert_same_pose(got, _jax_solve(pose0, edge, plane))
+
+
+# ---------------------------------------------------------------------------
+# VO solve (kernel B4's plain version)
+# ---------------------------------------------------------------------------
+
+VO_ITERS = 10
+
+
+def _vo_problem(rng, m=512, depth_frac=0.6, noise=0.001):
+    """Two cameras related by a known small motion; some matches carry depth
+    (3D-2D), the rest are epipolar-only (tests/test_pallas_gn.py:127-145)."""
+    aa = rng.normal(0, 0.02, 3)
+    t_true = np.array([0.1, -0.05, 0.8]) + rng.normal(0, 0.05, 3)
+    pose_true = geo.pose_from_qt(
+        geo.angle_axis_to_quat(jnp.array(aa, jnp.float32)), jnp.array(t_true, jnp.float32))
+    X0 = np.stack([rng.uniform(-10, 10, m), rng.uniform(-3, 3, m), rng.uniform(5, 40, m)],
+                  -1).astype(np.float32)
+    X1 = np.asarray(geo.pose_apply(pose_true, jnp.array(X0)))
+    xb0 = (X0[:, :2] / X0[:, 2:3] + rng.normal(0, noise, (m, 2))).astype(np.float32)
+    xb1 = (X1[:, :2] / X1[:, 2:3] + rng.normal(0, noise, (m, 2))).astype(np.float32)
+    hd = rng.random(m) < depth_frac
+    return np.asarray(pose_true), (X0, xb0, xb1, hd, ~hd)
+
+
+def _jax_vo_solve(pose0, prob, iters=VO_ITERS):
+    X0, xb0, xb1, hd, nd = (jnp.array(x) for x in prob)
+
+    def residuals(p):
+        return ((vo_factors.reproj_32_residual(p, X0, xb1), hd),
+                (vo_factors.epipolar_22_residual(p, xb0, xb1), nd))
+
+    return np.asarray(solve_pose_gn(residuals, jnp.array(pose0), iters, HUBER, LM))
+
+
+def _pallas_vo_solve(pose0, prob, iters=VO_ITERS):
+    with pltpu.force_tpu_interpret_mode():
+        out = solve_pose_gn_vo(jnp.array(pose0), *(jnp.array(x) for x in prob), iters, HUBER, LM,
+                               _force_tpu_path=True)
+    return np.asarray(out)
+
+
+def _port_vo_solve(pose0, prob, plain=False, iters=VO_ITERS):
+    fn = fused_gn.solve_pose_gn_vo_reference if plain else fused_gn.solve_pose_gn_vo
+    return fn(torch.tensor(np.asarray(pose0)), *(torch.tensor(x) for x in prob),
+              iters, HUBER, LM).numpy()
+
+
+def _assert_same_vo_pose(got, want):
+    np.testing.assert_allclose(got[4:], want[4:], atol=5e-3)
+    assert abs(float(np.sum(got[:4] * want[:4]))) > 1.0 - 1e-5, (got, want)
+
+
+@pytest.mark.parametrize("fn", ["reproj_32_residual", "epipolar_22_residual"])
+def test_vo_factors_match_reference(fn, rng):
+    pose_true, (X0, xb0, xb1, _, _) = _vo_problem(rng, m=128)
+    args = (pose_true, X0, xb1) if fn == "reproj_32_residual" else (pose_true, xb0, xb1)
+    want = getattr(vo_factors, fn)(*(jnp.array(a) for a in args))
+    got = getattr(tvo_factors, fn)(*(torch.tensor(a) for a in args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("trial", range(2))
+def test_vo_plain_matches_jax_cpu_path(trial):
+    rng = np.random.default_rng(200 + trial)
+    _, prob = _vo_problem(rng)
+    pose0 = np.asarray(geo.pose_identity())
+    _assert_same_vo_pose(_port_vo_solve(pose0, prob, plain=True), _jax_vo_solve(pose0, prob))
+
+
+def test_vo_plain_matches_pallas_interpret(rng):
+    _, prob = _vo_problem(rng, m=1024)
+    pose0 = np.asarray(geo.pose_identity())
+    _assert_same_vo_pose(_port_vo_solve(pose0, prob), _pallas_vo_solve(pose0, prob))
+    assert fused_gn.LAUNCHES_VO == 0
+
+
+def test_vo_converges_to_truth(rng):
+    pose_true, prob = _vo_problem(rng, noise=0.0002)
+    got = _port_vo_solve(np.asarray(geo.pose_identity()), prob)
+    np.testing.assert_allclose(got[4:], pose_true[4:], atol=0.03)
+    assert abs(float(np.sum(got[:4] * pose_true[:4]))) > 1.0 - 1e-4
+
+
+def test_vo_all_invalid_keeps_pose(rng):
+    _, (X0, xb0, xb1, hd, nd) = _vo_problem(rng)
+    prob = (X0, xb0, xb1, np.zeros_like(hd), np.zeros_like(nd))
+    pose0 = np.asarray(geo.pose_from_qt(
+        geo.angle_axis_to_quat(jnp.array([0.01, 0.02, -0.01])), jnp.array([0.1, -0.2, 0.8])))
+    got = _port_vo_solve(pose0, prob)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, pose0, atol=1e-3)
+    _assert_same_vo_pose(got, _jax_vo_solve(pose0, prob))

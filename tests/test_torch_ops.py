@@ -205,13 +205,14 @@ def test_gridding_copy_equals_reference():
 
 def test_port_never_imports_jax():
     """Importing the port and running a small slice (two frames, so LO and
-    MO both solve) loads no jax module."""
+    MO both solve) and two frames of the full step loads no jax module."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
         import vloam_tpu_torch
         from vloam_tpu_torch import config as C
-        from vloam_tpu_torch.data import gridding, synthetic
+        from vloam_tpu_torch.data import gridding, stream, synthetic
+        from vloam_tpu_torch.models import frame_graph, vloam
         from vloam_tpu_torch.models.lidar_slice import frame_to_device, init_lidar_state, lidar_step
         cfg = C.kitti_hdl64().replace(
             scan=C.ScanConfig(ring_cap=256, max_points=16384, less_flat_cap=4096),
@@ -225,6 +226,14 @@ def test_port_never_imports_jax():
             lf = gridding.less_flat_voxel_table(g, m, cfg.scan)
             state, out = lidar_step(state, *frame_to_device(g, m, lf, "cpu"), cfg)
         assert np.isfinite(out.world_mo.numpy()).all()
+        ext = frame_graph.kitti_default_extrinsics("cpu")
+        frames, _ = stream.gen_frames(cfg, ext, 2, n_azimuth=200)
+        vstate = vloam.init_vloam_state(cfg, "cpu")
+        for f in frames:
+            img, g, m, bk, lf = vloam.frame_to_device(*f, "cpu")
+            vstate, vout = vloam.vloam_step(vstate, img, g, m, ext, cfg, pre_gridded=True,
+                                            pre_buckets=bk, pre_lf_table=lf)
+        assert all(np.isfinite(v.numpy()).all() for v in vout)
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
         assert not bad, bad
         print("ok")
@@ -239,7 +248,7 @@ def test_port_never_imports_jax():
 def test_kernel_wrappers_never_fall_back():
     """A tensor that is not on the CPU goes to the kernel or raises: it is
     never quietly given to the plain version."""
-    from vloam_tpu_torch.ops import fused_gn, fused_knn
+    from vloam_tpu_torch.ops import fused_gn, fused_knn, patch_gather
 
     q = torch.zeros((8, 3), device="meta")
     m = torch.zeros((16,), dtype=torch.bool, device="meta")
@@ -250,4 +259,11 @@ def test_kernel_wrappers_never_fall_back():
     v = torch.zeros((8,), device="meta")
     with pytest.raises(ValueError):
         fused_gn.solve_pose_gn_lidar(pose, (q, q, q, v), (q, q, v, v), 4, 0.1, 1e-4)
+    with pytest.raises(ValueError):
+        fused_gn.solve_pose_gn_vo(pose, q, q[:, :2], q[:, :2], v.bool(), v.bool(), 10, 0.1, 1e-4)
+    img = torch.zeros((64, 64), device="meta")
+    corners = torch.zeros((8, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        patch_gather.gather_patches_pair(img, img, corners, corners, 32)
     assert fused_knn.LAUNCHES == 0 and fused_gn.LAUNCHES == 0
+    assert fused_gn.LAUNCHES_VO == 0 and patch_gather.LAUNCHES == 0

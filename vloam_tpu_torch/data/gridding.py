@@ -1,21 +1,23 @@
 """Host-side ring gridding — the data-layer half of scan registration.
 
-A NumPy copy of ``vloam_tpu/data/gridding.py`` (``grid_cloud`` and
-``less_flat_voxel_table``): the port cannot import the reference package,
-whose ``__init__`` imports jax.  Tests check that the two give equal arrays.
+A NumPy copy of ``vloam_tpu/data/gridding.py`` (``grid_cloud``,
+``less_flat_voxel_table`` and ``depth_buckets``): the port cannot import the
+reference package, whose ``__init__`` imports jax.  Tests check that the two
+give equal arrays.
 
 ``grid_cloud`` builds the dense (n_scans, ring_cap) ring grid that
 ``ops.scan_registration.extract_features_from_grid`` consumes: ring id from
 the vertical angle, azimuth relative time, min-range/NaN filter, scan-order
 rank within the ring.  ``less_flat_voxel_table`` pre-reduces the less-flat
-voxel runs on the host.
+voxel runs on the host, and ``depth_buckets`` builds VO's lidar depth-bucket
+grid.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from vloam_tpu_torch.config import ScanConfig
+from vloam_tpu_torch.config import ScanConfig, VisualConfig
 
 
 def grid_cloud(
@@ -138,3 +140,47 @@ def less_flat_voxel_table(
         base[:, ch] = np.bincount(idx, weights=flat[:, ch] * w, minlength=cap + 1)[:cap]
     base[:, 4] = np.bincount(idx, weights=w, minlength=cap + 1)[:cap]
     return slot.reshape(R, C), base, min(n_runs, cap)
+
+
+def depth_buckets(
+    points: np.ndarray,      # (N, 3) velodyne cloud (or (N, >=3); extra cols ignored)
+    mask: np.ndarray,        # (N,) bool
+    proj: np.ndarray,        # (3, 4) = P_rect0 @ rect0_T_cam @ cam_T_velo
+    vc: VisualConfig,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The lidar->camera depth-bucket grid (point_cloud_util.cpp:183-324
+    semantics): project the cloud, average hits per 5 px bucket.  Returns
+    (u, v, z, count), each (BW, BH) f32, what ``ops.depth_map.DepthBuckets``
+    holds."""
+    pts = np.asarray(points, np.float32)[:, :3]
+    g = vc.downsample_grid
+    bw = -(-vc.img_width // g)
+    bh = -(-vc.img_height // g)
+
+    uvz = pts @ proj[:, :3].T + proj[:, 3]
+    z = uvz[:, 2]
+    ok = np.asarray(mask, bool) & (z > vc.min_projection_depth)
+    zs = np.maximum(z, 1e-6)
+    u = uvz[:, 0] / zs
+    v = uvz[:, 1] / zs
+    ok &= np.isfinite(u) & np.isfinite(v)
+    u = np.where(ok, u, 0.0)
+    v = np.where(ok, v, 0.0)
+    ix = (u / g).astype(np.int32)
+    iy = (v / g).astype(np.int32)
+    ok &= (u >= 0) & (v >= 0) & (ix >= 0) & (ix < bw) & (iy >= 0) & (iy < bh)
+
+    flat = np.where(ok, ix * bh + iy, bw * bh)
+    nb = bw * bh
+    wts = ok.astype(np.float32)
+    cnt = np.bincount(flat, weights=wts, minlength=nb + 1)[:nb]
+    su = np.bincount(flat, weights=u * wts, minlength=nb + 1)[:nb]
+    sv = np.bincount(flat, weights=v * wts, minlength=nb + 1)[:nb]
+    sz = np.bincount(flat, weights=z * wts, minlength=nb + 1)[:nb]
+    denom = np.maximum(cnt, 1.0)
+    return (
+        (su / denom).astype(np.float32).reshape(bw, bh),
+        (sv / denom).astype(np.float32).reshape(bw, bh),
+        (sz / denom).astype(np.float32).reshape(bw, bh),
+        cnt.astype(np.float32).reshape(bw, bh),
+    )

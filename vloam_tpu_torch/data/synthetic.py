@@ -2,10 +2,12 @@
 
 A NumPy copy of the raycast world of ``vloam_tpu/data/synthetic.py``
 (``default_scene``, ``simulate_scan``, ``straight_trajectory``,
-``pad_cloud``): an HDL-64-like scanner in a Manhattan world of axis-aligned
-boxes + ground plane, raycast per (ring, azimuth) bin, clouds in the sensor
-frame with exact poses.  Tests check that it gives the same arrays as the
-original.
+``pad_cloud``; and for the camera ``render_blob_image``, ``CAM_R_WORLD``,
+``raycast_camera``, ``kitti_like_intrinsics``): an HDL-64-like scanner in a
+Manhattan world of axis-aligned boxes + ground plane, raycast per (ring,
+azimuth) bin, clouds in the sensor frame with exact poses, and camera
+images of Gaussian blobs at raycast world points.  Tests check that it
+gives the same arrays as the original.
 """
 
 from __future__ import annotations
@@ -116,3 +118,65 @@ def pad_cloud(pts: np.ndarray, cap: int) -> tuple[np.ndarray, np.ndarray]:
     out[:n] = pts[:n]
     msk[:n] = True
     return out, msk
+
+
+def render_blob_image(
+    points_cam: np.ndarray, K: np.ndarray, height: int, width: int, sigma: float = 1.3, seed: int = 0
+) -> np.ndarray:
+    """Render Gaussian blobs at the projections of camera-frame points:
+    trackable, corner-like texture for Shi-Tomasi/KLT.  Returns (H, W)
+    float32 in [0, 255]."""
+    rng = np.random.default_rng(seed)
+    z = points_cam[:, 2]
+    vis = z > 0.5
+    uv = (points_cam[vis] @ K.T)
+    uv = uv[:, :2] / uv[:, 2:3]
+    amp = rng.uniform(120.0, 250.0, len(points_cam))[vis]
+
+    img = np.zeros((height, width), np.float32)
+    r = int(3 * sigma) + 1
+    for (u, v), a in zip(uv, amp):
+        ui, vi = int(round(u)), int(round(v))
+        if not (r <= ui < width - r and r <= vi < height - r):
+            continue
+        ys, xs = np.mgrid[vi - r : vi + r + 1, ui - r : ui + r + 1]
+        img[vi - r : vi + r + 1, ui - r : ui + r + 1] += a * np.exp(
+            -((xs - u) ** 2 + (ys - v) ** 2) / (2 * sigma**2)
+        )
+    return np.clip(img, 0, 255.0)
+
+
+CAM_R_WORLD = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+"""KITTI-style camera axes in the lidar/world convention:
+cam x = -world y (right), cam y = -world z (down), cam z = world x (forward)."""
+
+
+def raycast_camera(
+    R_wc: np.ndarray,  # (3,3) camera-to-world rotation (columns = cam axes in world)
+    t_w: np.ndarray,   # (3,) camera origin in world
+    boxes: np.ndarray,
+    K: np.ndarray,
+    uv: np.ndarray,    # (N, 2) pixel coords
+    max_range: float = 90.0,
+    ground_z: float = -1.73,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Cast rays through pixels; returns (points_cam (N,3), hit (N,))."""
+    Kinv = np.linalg.inv(K)
+    rays_cam = np.concatenate([uv, np.ones((len(uv), 1))], axis=1) @ Kinv.T
+    rays_cam = rays_cam / np.linalg.norm(rays_cam, axis=1, keepdims=True)
+    rays_w = rays_cam @ R_wc.T
+    origins = np.broadcast_to(t_w, rays_w.shape)
+    t_box = _ray_aabb(origins, rays_w, boxes)
+    dz = rays_w[:, 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t_ground = np.where(dz < -1e-6, (ground_z - t_w[2]) / np.where(dz == 0, -1.0, dz), np.inf)
+    t = np.minimum(t_box, t_ground)
+    hit = t < max_range
+    return (rays_cam * np.where(hit, t, 0.0)[:, None]).astype(np.float32), hit
+
+
+def kitti_like_intrinsics(width: int = 1248, height: int = 376) -> np.ndarray:
+    return np.array(
+        [[718.856, 0.0, width / 2.0], [0.0, 718.856, height / 2.0], [0.0, 0.0, 1.0]],
+        np.float32,
+    )

@@ -64,6 +64,31 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (xyzw), branch-free Shepperd's method:
+    all four constructions, the one with the largest diagonal pivot kept."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    piv = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                       1.0 - m00 - m11 + m22], dim=-1)
+    piv = torch.sqrt(torch.clamp(piv, min=QUAT_EPS)) * 0.5
+    w0, x1, y2, z3 = piv.unbind(-1)
+    cand = torch.stack(
+        [
+            torch.stack([(m21 - m12) / (4 * w0), (m02 - m20) / (4 * w0), (m10 - m01) / (4 * w0), w0], -1),
+            torch.stack([x1, (m01 + m10) / (4 * x1), (m02 + m20) / (4 * x1), (m21 - m12) / (4 * x1)], -1),
+            torch.stack([(m01 + m10) / (4 * y2), y2, (m12 + m21) / (4 * y2), (m02 - m20) / (4 * y2)], -1),
+            torch.stack([(m02 + m20) / (4 * z3), (m12 + m21) / (4 * z3), z3, (m10 - m01) / (4 * z3)], -1),
+        ],
+        dim=-2,
+    )  # (..., 4 candidates, 4)
+    idx = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.take_along_dim(cand, idx[..., None, None].expand(idx.shape + (1, 4)), dim=-2)[..., 0, :]
+    return quat_normalize(q)
+
+
 def angle_axis_to_quat(aa: torch.Tensor) -> torch.Tensor:
     theta = torch.linalg.vector_norm(aa, dim=-1, keepdim=True)
     half = 0.5 * theta

@@ -248,6 +248,8 @@ def _append(buf, n, pts_w, m):
 def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_mask,
                  pose_wodom, cfg: VloamConfig):
     """One mapping frame.  Returns (new_state, world pose after mapping).
+    ``skip_frame`` is not read here: skipping frames is the caller's job
+    (``models/vloam.vloam_step``).
 
     Two host decisions per frame (each a device->host sync): whether the
     submap cache must be rebuilt, and whether the map holds enough points
@@ -257,8 +259,6 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
         raise NotImplementedError(
             "MappingConfig.insert_dedup=False (window re-voxelisation) is not ported yet "
             "(ROADMAP A9)")
-    if mc.skip_frame > 1:
-        raise NotImplementedError("MappingConfig.skip_frame > 1 is not ported yet (ROADMAP A7)")
     dev = pose_wodom.device
 
     pose0 = geo.pose_compose(state.wmap_wodom, pose_wodom)

@@ -138,15 +138,17 @@ def solve_f2f(feats: ScanFeatures, cand_corner, cand_corner_mask, cand_surf,
     return pose, counts
 
 
-def lo_step(state: LoState, feats: ScanFeatures, cfg: VloamConfig):
+def lo_step(state: LoState, feats: ScanFeatures, cfg: VloamConfig, vo_prior=None):
     """One LO frame.  Returns (new_state, f2f pose last_T_curr, world pose,
-    corr_counts (2,)).  The previous solution warm-starts the solve (the
-    decoupled mode; a VO prior comes with the VO port)."""
+    corr_counts (2,)).  ``vo_prior`` (a 7-pose, velodyne frame, last_T_curr)
+    seeds the solve in the coupled mode (laser_odometry.cpp:237-250);
+    otherwise the previous solution warm-starts it."""
     dev = state.pose_wodom.device
+    pose0 = state.last_delta if vo_prior is None else vo_prior
     if state.initialized:
         delta, corr_counts = solve_f2f(
             feats, state.last_corner, state.last_corner_mask,
-            state.last_surf, state.last_surf_mask, state.last_delta, cfg,
+            state.last_surf, state.last_surf_mask, pose0, cfg,
         )
         pose_w = geo.pose_compose(state.pose_wodom, delta)
         last_delta = delta

@@ -51,7 +51,9 @@ def lidar_step(state: LidarState, grid, gmask, lf_table, cfg: VloamConfig):
     """One frame of scan registration + LO + MO on a pre-gridded scan.
     Returns (new_state, LidarOutputs)."""
     if not cfg.detach_vo_lo:
-        raise NotImplementedError("the coupled (C) mode needs the VO port (ROADMAP A6-A7)")
+        raise NotImplementedError("the coupled (C) mode needs VO: use models/vloam.vloam_step")
+    if cfg.mapping.skip_frame > 1:
+        raise NotImplementedError("MappingConfig.skip_frame > 1: use models/vloam.vloam_step")
     n_per_ring = gmask.sum(dim=1)
     feats = extract_features_from_grid(grid, gmask, n_per_ring, cfg.scan, lf_table=lf_table)
     lo_state, lo_delta, world_lo, lo_corr = lo_step(state.lo, feats, cfg)
