@@ -205,7 +205,9 @@ def test_gridding_copy_equals_reference():
 
 def test_port_never_imports_jax():
     """Importing the port and running a small slice (two frames, so LO and
-    MO both solve) and two frames of the full step loads no jax module."""
+    MO both solve), two frames of the full step, and the runtime entry point
+    (VloamDriver with a checkpoint, trajectory export and the CLI's ``main``)
+    loads no jax module."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -234,6 +236,20 @@ def test_port_never_imports_jax():
             vstate, vout = vloam.vloam_step(vstate, img, g, m, ext, cfg, pre_gridded=True,
                                             pre_buckets=bk, pre_lf_table=lf)
         assert all(np.isfinite(v.numpy()).all() for v in vout)
+        import tempfile
+        from vloam_tpu_torch.data import kitti
+        from vloam_tpu_torch.runtime import __main__ as cli, driver
+        from vloam_tpu_torch.utils import kitti_eval, trajectory
+        with tempfile.TemporaryDirectory() as tmp:
+            drv = driver.VloamDriver(cfg, ext, out_dir=tmp, checkpoint_dir=tmp + "/ck",
+                                     checkpoint_every=2, device="cpu")
+            for img, g, m, _, _ in frames:
+                drv.process_grid(img, g, m)
+            drv.close()
+            assert drv.restore_checkpoint(tmp + "/ck/ckpt_000002") == 2
+            assert trajectory.load_kitti_trajectory(tmp + "/MO1.txt").shape == (2, 3, 4)
+        C.kitti_hdl64 = lambda: cfg
+        cli.main(["--device", "cpu", "--frames", "2", "--json"])
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
         assert not bad, bad
         print("ok")

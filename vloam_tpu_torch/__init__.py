@@ -4,12 +4,17 @@ A second package beside ``vloam_tpu`` (the JAX reference, which it never
 imports).  It mirrors the reference layout so that every function's twin is
 easy to find:
 
-  models : lidar_odometry (LO), laser_mapping (MO), lidar_slice (their
-           composition inside one frame)
-  ops    : geometry-level solvers and searches; ``fused_knn`` and
-           ``fused_gn`` hold the hand-written CUDA kernels (csrc/) beside
-           their plain PyTorch versions
-  data   : NumPy host data layer (ring gridding, synthetic raycast world)
+  runtime: the sequence driver (VloamDriver, run_synthetic, run_kitti) and
+           the CLI ``python -m vloam_tpu_torch.runtime``
+  models : visual_odometry (VO), lidar_odometry (LO), laser_mapping (MO),
+           frame_graph, vloam (the full frame step), lidar_slice (LO + MO)
+  ops    : geometry-level solvers and searches; ``knn``, ``fused_knn``,
+           ``fused_gn`` and ``patch_gather`` hold the wrappers of the
+           hand-written CUDA kernels (csrc/) beside their plain PyTorch
+           versions
+  data   : NumPy host data layer (ring gridding, synthetic raycast world,
+           the bench frame stream, the KITTI loaders)
+  utils  : trajectory export, KITTI metrics, stage timing, checkpoints
 
 State is a NamedTuple of tensors on an explicit device; functions are plain
 functions over state (there are no weights, so no nn.Module).

@@ -14,7 +14,7 @@
 // memory, so at the slice's shapes (up to 8192 x 49152) the FP32 pipes, not
 // HBM, are the limit.
 //
-// Design:
+// Design (the per-block sweep is knn_common.cuh, shared with knn.cu):
 //   * one thread per query, kThreads queries per block; blocks [0, blocks_a)
 //     serve group A and the rest group B, so both problems share one launch;
 //   * candidate tiles of kTile points are staged through shared memory as
@@ -34,104 +34,11 @@
 //     and queries past their valid count return d2 = +inf with index 0,
 //     an in-range index that callers may gather with.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "knn_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kTile = 1024;
-
-struct Group {
-  const float* q;        // (m, 3) queries, row-major
-  const float* c;        // (n, 3) candidates, row-major
-  const uint8_t* mask;   // (n,) candidate validity
-  const float* center;   // (3,) rebase centre
-  float* d2;             // (m, k) out
-  int64_t* idx;          // (m, k) out
-  int m;
-  int n;
-};
-
-template <int K>
-__device__ __forceinline__ void knn_block(const Group& g, int q_count, int c_count, int block,
-                                          float* sx, float* sy, float* sz) {
-  const int tid = threadIdx.x;
-  const int qi = block * kThreads + tid;
-  q_count = min(max(q_count, 0), g.m);
-  c_count = min(max(c_count, 0), g.n);
-  const float c0 = g.center[0], c1 = g.center[1], c2 = g.center[2];
-  const bool live = qi < q_count;
-
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (live) {
-    qx = __fsub_rn(g.q[3 * qi + 0], c0);
-    qy = __fsub_rn(g.q[3 * qi + 1], c1);
-    qz = __fsub_rn(g.q[3 * qi + 2], c2);
-  }
-  float bd[K];
-  int bi[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    bd[s] = CUDART_INF_F;
-    bi[s] = 0;
-  }
-
-  // uniform across the block, so the __syncthreads below are safe
-  if (block * kThreads < q_count) {
-    for (int base = 0; base < c_count; base += kTile) {
-      const int n = min(kTile, c_count - base);
-      for (int j = tid; j < n; j += kThreads) {
-        const int gj = base + j;
-        if (g.mask[gj]) {
-          sx[j] = __fsub_rn(g.c[3 * gj + 0], c0);
-          sy[j] = __fsub_rn(g.c[3 * gj + 1], c1);
-          sz[j] = __fsub_rn(g.c[3 * gj + 2], c2);
-        } else {
-          sx[j] = CUDART_INF_F;
-          sy[j] = CUDART_INF_F;
-          sz[j] = CUDART_INF_F;
-        }
-      }
-      __syncthreads();
-      if (live) {
-        for (int j = 0; j < n; ++j) {
-          const float dx = __fsub_rn(qx, sx[j]);
-          const float dy = __fsub_rn(qy, sy[j]);
-          const float dz = __fsub_rn(qz, sz[j]);
-          const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                    __fmul_rn(dz, dz));
-          if (d < bd[K - 1]) {
-            bd[K - 1] = d;
-            bi[K - 1] = base + j;
-#pragma unroll
-            for (int s = K - 1; s > 0; --s) {
-              if (bd[s] < bd[s - 1]) {
-                const float td = bd[s];
-                bd[s] = bd[s - 1];
-                bd[s - 1] = td;
-                const int ti = bi[s];
-                bi[s] = bi[s - 1];
-                bi[s - 1] = ti;
-              }
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  if (qi < g.m) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const bool found = bd[s] < CUDART_INF_F;
-      g.d2[(int64_t)qi * K + s] = found ? bd[s] : CUDART_INF_F;
-      g.idx[(int64_t)qi * K + s] = found ? (int64_t)bi[s] : 0;
-    }
-  }
-}
+using namespace vloam_knn_detail;
 
 template <int KA, int KB>
 __global__ void __launch_bounds__(kThreads)
@@ -140,9 +47,11 @@ knn_pair_kernel(Group a, Group b, const int* __restrict__ counts, int blocks_a) 
   __shared__ float sy[kTile];
   __shared__ float sz[kTile];
   if ((int)blockIdx.x < blocks_a) {
-    knn_block<KA>(a, counts[0], counts[1], blockIdx.x, sx, sy, sz);
+    RegTopK<KA> best;
+    knn_block(a, counts[0], counts[1], blockIdx.x, sx, sy, sz, best);
   } else {
-    knn_block<KB>(b, counts[2], counts[3], blockIdx.x - blocks_a, sx, sy, sz);
+    RegTopK<KB> best;
+    knn_block(b, counts[2], counts[3], blockIdx.x - blocks_a, sx, sy, sz, best);
   }
 }
 

@@ -29,8 +29,8 @@ import torch
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("knn_pair.cu", "gn_lidar.cu", "gn_vo.cu", "gather_patches.cu")
-HEADERS = ("gn_common.cuh",)
+SOURCES = ("knn_pair.cu", "knn.cu", "gn_lidar.cu", "gn_vo.cu", "gather_patches.cu")
+HEADERS = ("knn_common.cuh", "gn_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
@@ -42,6 +42,7 @@ _SIGNATURES = {
     "vloam_knn_pair": (
         [_P, _P, _P, _P, _I, _I, _I, _P, _P] * 2 + [_P, _P]
     ),
+    "vloam_knn": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "vloam_gn_lidar": [_P, _P, _I, _P, _I, _I, _F, _F, _P, _P],
     "vloam_gn_vo": [_P, _P, _I, _I, _F, _F, _P, _P],
     "vloam_gather_patches": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],

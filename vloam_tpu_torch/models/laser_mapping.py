@@ -26,7 +26,7 @@ from vloam_tpu_torch import geometry as geo
 from vloam_tpu_torch.config import VloamConfig
 from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_lidar
 from vloam_tpu_torch.ops.fused_knn import knn_pair
-from vloam_tpu_torch.ops.knn import compact_rows
+from vloam_tpu_torch.ops.knn import compact_rows, knn
 from vloam_tpu_torch.ops.linalg3 import eigh3x3_sym, solve3x3_sym
 from vloam_tpu_torch.ops.voxel import div_exact, voxel_downsample
 
@@ -173,6 +173,27 @@ def fit_surf_planes(stack, stack_mask, nbr, d2, cfg):
     plane_ok = torch.all(fit <= mc.plane_fit_tol, dim=-1)
     valid = stack_mask & (d2[:, -1] < mc.neighbor_dist_sq) & plane_ok
     return stack[:, :3], torch.stack([nx, ny, nz], dim=-1), d, valid
+
+
+def _corner_correspondences(pose, stack, stack_mask, cand, cand_mask, cfg,
+                            cand_count=None, query_count=None):
+    """Map association of one feature type, one k-NN problem per launch:
+    5-NN + PCA line fit -> virtual edge endpoints.  Also returns the 1-NN
+    squared distance (d2[:, 0]) for the insert-dedup gate.  ``mapping_step``
+    runs both feature types through one ``knn_pair`` launch instead."""
+    q = geo.pose_apply(pose, stack[:, :3])
+    d2, idx = knn(q, cand[:, :3], cand_mask, cfg.mapping.n_neighbors,
+                  cand_count=cand_count, query_count=query_count)
+    return fit_corner_lines(stack, stack_mask, cand[idx, :3], d2, cfg) + (d2[:, 0],)
+
+
+def _surf_correspondences(pose, stack, stack_mask, cand, cand_mask, cfg,
+                          cand_count=None, query_count=None):
+    """5-NN + least-squares plane fit A n = -1, one k-NN problem per launch."""
+    q = geo.pose_apply(pose, stack[:, :3])
+    d2, idx = knn(q, cand[:, :3], cand_mask, cfg.mapping.n_neighbors,
+                  cand_count=cand_count, query_count=query_count)
+    return fit_surf_planes(stack, stack_mask, cand[idx, :3], d2, cfg) + (d2[:, 0],)
 
 
 def _scatter_insert_pair(corner_w, c_mask, surf_w, s_mask,

@@ -88,12 +88,23 @@ def vloam_state_from_numpy(state, device) -> VloamState:
     )
 
 
+def host_to_device(x, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  To a card it goes through
+    pinned memory as a non-blocking copy, so the upload does not stall the
+    host (the caching pinned allocator keeps the buffer until the copy is
+    done)."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def frame_to_device(img, grid, gmask, buckets, lf_table, device):
     """Host frame (image, ring grid + mask, depth buckets (u, v, z, count),
     less-flat table) -> the tensors ``vloam_step`` takes, in its argument
     order after the state: (img, grid, gmask, DepthBuckets, lf_table)."""
     slot_grid, base_sums, n_runs = lf_table
-    t = lambda x: torch.as_tensor(np.asarray(x), device=device)  # noqa: E731
+    t = lambda x: host_to_device(x, device)  # noqa: E731
     return (
         t(img), t(grid), t(gmask),
         DepthBuckets(*(t(b) for b in buckets)),

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from vloam_tpu_torch import kernels
-from vloam_tpu_torch.ops.knn import as_count, center_of, knn
+from vloam_tpu_torch.ops.knn import as_count, center_of, knn_reference
 
 LAUNCHES = 0  # kernel launches by knn_pair (plain-version calls do not count)
 
@@ -30,10 +30,11 @@ KERNEL_K_PAIRS = ((8, 16), (5, 5), (8, 8), (16, 16))  # instantiated in knn_pair
 
 def knn_pair_reference(qa, ca, ma, ka, qb, cb, mb, kb,
                        a_counts=(None, None), b_counts=(None, None)):
-    """Plain PyTorch version: two blocked exact top-k searches."""
+    """Plain PyTorch version: two blocked exact top-k searches (it launches
+    no kernel of this package, on either device)."""
     return (
-        knn(qa, ca, ma, ka, cand_count=a_counts[1], query_count=a_counts[0]),
-        knn(qb, cb, mb, kb, cand_count=b_counts[1], query_count=b_counts[0]),
+        knn_reference(qa, ca, ma, ka, cand_count=a_counts[1], query_count=a_counts[0]),
+        knn_reference(qb, cb, mb, kb, cand_count=b_counts[1], query_count=b_counts[0]),
     )
 
 
