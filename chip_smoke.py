@@ -15,12 +15,18 @@ Phases, each printed on its own lines:
    single-problem k-NN on each group of the MO call (also against the pair
    kernel, bit for bit; ``nn1``; one k outside the register instantiations)
    and the map association built on it, the VO GN solve on a tracked frame,
-   and the KLT patch gather at the two coarse pyramid levels of frame 1 and
-   at level 0 of a tracked frame; with the tolerances below, the median
-   times of both (CUDA events, 20 runs) and each kernel's roofline bound.
+   the KLT patch gather at the two coarse pyramid levels of frame 1 and
+   at level 0 of a tracked frame, and its single-image and stacked launch
+   forms at the ORB frontend's shape and at a BRISK blur stack's; with the
+   tolerances below, the median times of both (CUDA events, 20 runs) and
+   each kernel's roofline bound.
    Then (3b) the single-problem map association path, driven with the
    launch counts at 0: MO's two outer iterations with one k-NN launch per
    feature type, against the fused path from the same pose;
+   and (3c) the patch-gather measurement tool
+   (``vloam_tpu_torch.tools.gather_experiments``) in process, with the
+   launch counts at 0: its eleven kernels, the shipped two-image kernel and
+   the plain gather, each equal to its plain version and timed;
 4. the lidar slice (scan registration -> LO -> MO) alone, 12 frames;
 5. the full step ``vloam_step`` in the decoupled (D) mode at full
    ``kitti_hdl64`` width with the whole map on the device: 40 frames of
@@ -34,7 +40,11 @@ Phases, each printed on its own lines:
    checked against ground truth, phase 5's launch counts, and the count of
    synchronising calls of a steady frame; VloamDriver's stage times;
 8. checkpoint and resume (12 frames, a checkpoint at 6, a fresh driver
-   resumed from it) and the CLI in a subprocess.
+   resumed from it) and the CLI in a subprocess, in KLT mode and with
+   ``--descriptor-match``;
+9. the full step in (D) with VO in descriptor-match mode
+   (``optical_flow_match=False``, ORB descriptors on the single-image patch
+   gather, brute-force Hamming matching), 12 frames.
 
 Then one JSON line of per-kernel results, the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -92,13 +102,29 @@ KNN_PAIR_OPS = 9       # per (live query, live candidate): 3 sub, 3 mul, 2 add, 
 GN_LIDAR_OPS = 100     # per live residual and iteration (csrc/gn_lidar.cu)
 GN_VO_OPS = 150        # per live match and iteration (csrc/gn_vo.cu)
 
+MIN_ORB_MATCHES = 100  # valid matches a frame in descriptor mode (tests/test_orb.py:56)
+BRISK_BLUR_SIGMAS = (0.8, 1.8, 3.2)   # the blur stack of one BRISK octave (ops/brisk.py:41)
+
 KERNELS = {   # name: (source under vloam_tpu_torch/csrc, the TPU kernel it replaces)
     "knn_pair": ("knn_pair.cu", "vloam_tpu/ops/pallas_knn.py:124"),
     "knn": ("knn.cu", "vloam_tpu/ops/pallas_knn.py:53"),
     "gn_lidar": ("gn_lidar.cu", "vloam_tpu/ops/pallas_gn.py:138"),
     "gn_vo": ("gn_vo.cu", "vloam_tpu/ops/pallas_gn.py:208"),
     "gather_patches": ("gather_patches.cu", "vloam_tpu/ops/pallas_gather.py:57"),
+    "strip_sweep": ("gather_sweeps.cu", "tools/gather_experiments.py:107"),
+    "strip_sweep_db": ("gather_sweeps.cu", "tools/gather_experiments.py:143"),
+    "strip_sweep_batched": ("gather_sweeps.cu", "tools/gather_experiments.py:188"),
+    "strip_sweep_flat": ("gather_sweeps.cu", "tools/gather_experiments.py:229"),
+    "whole_image": ("gather_sweeps.cu", "tools/gather_experiments.py:270"),
+    "gather_narrow": ("gather_variants.cu", "tools/gather_experiments.py:304"),
+    "dma_only": ("gather_variants.cu", "tools/gather_experiments.py:389"),
+    "compact_only": ("gather_variants.cu", "tools/gather_experiments.py:439"),
+    "gather_resident": ("gather_variants.cu", "tools/gather_experiments.py:497"),
+    "gather_mma": ("gather_variants.cu", "tools/gather_experiments.py:546"),
+    "gather_resident_mma": ("gather_variants.cu", "tools/gather_experiments.py:612"),
 }
+# the other two launch forms of the gather_patches kernel, listed under its entry
+GATHER_FORMS = ("gather_patches_single", "gather_patches_stack")
 
 
 def card_line() -> str:
@@ -233,6 +259,8 @@ def main() -> int:
     results, calls = check_kernels(cfg, ext, dframes, card)
     launches = {"knn": check_single_association(cfg, calls, card)}
     del calls
+    launches["gather_patches_stack"] = check_stack_path(cfg, dframes[N_WARMUP - 1][0], card)
+    launches.update(check_variants(results, card))
     slice_syncs = check_slice(cfg, dframes[:N_SHORT], poses, card)
     step_launches, per_frame, step_syncs = check_step(cfg, ext, dframes, poses, card, slice_syncs)
     launches.update(step_launches)
@@ -241,17 +269,28 @@ def main() -> int:
     check_driver(cfg, card, per_frame, step_syncs)
     check_resume(cfg, ext, frames[:N_RESUME], card)
     check_cli(card)
+    check_cli(card, "--descriptor-match")
+    dframes = [frame_to_device(*f, dev) for f in frames[:N_SHORT]]
+    launches["gather_patches_single"] = check_descriptor_mode(cfg, ext, dframes, poses, card,
+                                                              step_syncs)
+    del dframes
 
-    kern = []
-    for name, (src, rep) in KERNELS.items():
+    def entry(name, **kw):
         assert launches[name] > 0, f"{name}: not launched on its path"
         r = results[name]
-        kern.append({"name": name, "route": "cuda", "source": f"vloam_tpu_torch/csrc/{src}",
-                     "replaces": rep, "launches": launches[name], "max_abs_err": r["err"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": max(r["ops_ms"], r["bytes_ms"]),
-                     "bound_by": "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes",
-                     "library_ms": None})
+        return {"name": name, "route": "cuda", **kw, "launches": launches[name],
+                "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": max(r["ops_ms"], r["bytes_ms"]),
+                "bound_by": "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes",
+                "library_ms": r["library_ms"],
+                **({"device_ms": r["device_ms"]} if "device_ms" in r else {})}
+
+    kern = [entry(name, source=f"vloam_tpu_torch/csrc/{src}", replaces=rep)
+            for name, (src, rep) in KERNELS.items()]
+    forms = [entry(name) for name in GATHER_FORMS]
+    # the stacked form's launches are those of check_stack_path's one call, not of a system path
+    forms[1]["caller"] = "none in the port yet (the BRISK/FREAK descriptor support): driven alone"
+    next(k for k in kern if k["name"] == "gather_patches")["forms"] = forms
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -310,9 +349,11 @@ def knn_work(q, cand, mask, k, q_count, c_count):
 
 def check_kernels(cfg, ext, dframes, card):
     """Phase 3; returns ({kernel: {"err", "ms", "plain_ms", "ops_ms",
-    "bytes_ms"}}, the captured calls).  Times add up over the call shapes
-    timed for a kernel, and so do the two roofline times (operations over
-    PEAK_F32, bytes over PEAK_BW) of the same calls."""
+    "bytes_ms", "library_ms"}}, the captured calls).  Times add up over the
+    call shapes timed for a kernel, and so do the two roofline times
+    (operations over PEAK_F32, bytes over PEAK_BW) of the same calls.
+    ``library_ms`` is the time of the one PyTorch call that computes the same
+    function on the same inputs, None where there is none."""
     from vloam_tpu_torch.models.vloam import init_vloam_state
     from vloam_tpu_torch.ops import fused_gn, fused_knn, knn, patch_gather
 
@@ -322,10 +363,10 @@ def check_kernels(cfg, ext, dframes, card):
     state, calls = capture_calls(init_vloam_state(cfg, dframes[0][0].device), dframes[:N_WARMUP],
                                  ext, cfg, keep={1, last})
     del state
-    results = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
-               for k in KERNELS}
+    results = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                   "library_ms": None} for k in (*KERNELS, *GATHER_FORMS)}
 
-    def timed(name, label, kernel, plain, ops, nbytes):
+    def timed(name, label, kernel, plain, ops, nbytes, library=None):
         ms, plain_ms = time_ms(kernel), time_ms(plain)
         ops_ms, bytes_ms = ops / PEAK_F32 * 1e3, nbytes / PEAK_BW * 1e3
         r = results[name]
@@ -337,6 +378,10 @@ def check_kernels(cfg, ext, dframes, card):
               f"(median of {TIMING_RUNS}); bound {max(ops_ms, bytes_ms):.5f} ms "
               f"({ops / 1e6:.2f} MFLOP -> {ops_ms:.5f} ms, {nbytes / 1e6:.3f} MB -> "
               f"{bytes_ms:.5f} ms) [{card}]")
+        if library is not None:
+            r["library_ms"] = time_ms(library)
+            print(f"  {name} {label}: the one PyTorch call for the same function "
+                  f"{r['library_ms']:.4f} ms [{card}]")
         return ms
 
     def cdist_topk(label, q, cand, k):
@@ -428,6 +473,8 @@ def check_kernels(cfg, ext, dframes, card):
         ref = patch_gather.gather_patches_pair_reference(*args)
         torch.cuda.synchronize()
         for g_, r_ in zip(got, ref):
+            results["gather_patches"]["err"] = max(results["gather_patches"]["err"],
+                                                   float((g_ - r_).abs().max()))
             assert torch.equal(g_, r_), f"gather_patches {label}: kernel differs from plain"
         img = args[0]
         print(f"  gather_patches {label} {tuple(img.shape)} -> 2x{tuple(got[0].shape)}: "
@@ -438,9 +485,137 @@ def check_kernels(cfg, ext, dframes, card):
             timed("gather_patches", f"{label} {tuple(img.shape)} N={got[0].shape[0]}",
                   lambda: patch_gather.gather_patches_pair(*args),
                   lambda: patch_gather.gather_patches_pair_reference(*args), 0, nbytes)
-    print("  library_ms is null for every kernel: no single PyTorch call computes a masked k-NN "
-          "with dynamic counts, a fused Gauss-Newton solve, or the two-image window copy")
+    check_gather_forms(cfg, dframes[last][0], timed, results)
+    print("  library_ms is null for the k-NN and Gauss-Newton kernels and the two-image gather: "
+          "no single PyTorch call computes a masked k-NN with dynamic counts, a fused "
+          "Gauss-Newton solve, or windows of two separate images")
     return results, calls
+
+
+def orb_corners(img, cfg):
+    """The smoothed image and the clipped int32 patch corners the ORB frontend
+    gathers at (ops/orb.orb_descriptors), for the corners detected on ``img``."""
+    from vloam_tpu_torch.ops import image_ops, orb
+
+    pts, _, _ = image_ops.detect_corners(img, cfg.visual)
+    H, W = img.shape
+    corner = torch.round(pts).to(torch.int32) - orb.PATCH // 2
+    corner = torch.stack([torch.clamp(corner[:, 0], 0, W - orb.PATCH),
+                          torch.clamp(corner[:, 1], 0, H - orb.PATCH)], dim=-1).contiguous()
+    return image_ops._sep_conv(img, orb._SMOOTH, orb._SMOOTH), corner
+
+
+def blur_stack(img):
+    """The (3, H, W) blur stack of BRISK's octave 0 (vloam_tpu/ops/brisk.py:263-270)."""
+    from vloam_tpu_torch.ops import image_ops
+
+    blurs = []
+    for sig in BRISK_BLUR_SIGMAS:
+        r = max(int(np.ceil(2.5 * sig)), 1)
+        k1 = np.exp(-0.5 * (np.arange(-r, r + 1) / sig) ** 2)
+        k1 = [float(v) for v in (k1 / k1.sum()).astype(np.float32)]
+        blurs.append(image_ops._sep_conv(img, k1, k1))
+    return torch.stack(blurs).contiguous()
+
+
+def check_gather_forms(cfg, img, timed, results):
+    """Phase 3, the single-image and stacked launch forms of the patch gather
+    against their plain versions (equality), at the ORB frontend's shape and
+    at a BRISK blur stack's.  The library call of each is one index call on
+    the view of all the image's windows."""
+    from vloam_tpu_torch.ops import patch_gather
+    from vloam_tpu_torch.tools.gather_experiments import window_view
+
+    smooth, corner = orb_corners(img, cfg)
+    n = corner.shape[0]
+    cx, cy = corner[:, 0], corner[:, 1]
+    got = patch_gather.gather_patches(smooth, corner)
+    ref = patch_gather.gather_patches_reference(smooth, corner)
+    windows = window_view(smooth)
+    torch.cuda.synchronize()
+    results["gather_patches_single"]["err"] = float((got - ref).abs().max())
+    assert torch.equal(got, ref), "gather_patches (single image): kernel differs from plain"
+    assert torch.equal(windows[cy, cx], ref), "single image: library call differs from plain"
+    print(f"  gather_patches {tuple(smooth.shape)} N={n} -> {tuple(got.shape)}: bit-equal to the "
+          f"plain version")
+    # a pure copy: the image and the corners read once, the patches written once
+    timed("gather_patches_single", f"ORB frontend {tuple(smooth.shape)} N={n}",
+          lambda: patch_gather.gather_patches(smooth, corner),
+          lambda: patch_gather.gather_patches_reference(smooth, corner), 0,
+          smooth.numel() * 4 + corner.numel() * 4 + got.numel() * 4,
+          library=lambda: windows[cy, cx])
+
+    stack = blur_stack(img)
+    got = patch_gather.gather_patches_stack(stack, corner)
+    ref = patch_gather.gather_patches_stack_reference(stack, corner)
+    stack_windows = window_view(stack)
+    torch.cuda.synchronize()
+    results["gather_patches_stack"]["err"] = float((got - ref).abs().max())
+    assert torch.equal(got, ref), "gather_patches_stack: kernel differs from plain"
+    assert torch.equal(stack_windows[:, cy, cx], ref), "stack: library call differs from plain"
+    print(f"  gather_patches_stack {tuple(stack.shape)} N={n} -> {tuple(got.shape)}: bit-equal to "
+          f"the plain version")
+    timed("gather_patches_stack", f"BRISK blur stack {tuple(stack.shape)} N={n}",
+          lambda: patch_gather.gather_patches_stack(stack, corner),
+          lambda: patch_gather.gather_patches_stack_reference(stack, corner), 0,
+          stack.numel() * 4 + corner.numel() * 4 + got.numel() * 4,
+          library=lambda: stack_windows[:, cy, cx])
+
+
+def check_stack_path(cfg, img, card):
+    """The stacked launch form, driven alone.  Its only caller in the
+    reference is the BRISK/FREAK descriptor support, which is not ported, so
+    no path of the system reaches it yet: this is that caller's one call (one
+    octave's blur stack of a course image, patches at the detected corners)
+    with the launch count at 0 before it, and the kernels line says so
+    (``caller``).  Returns the launches."""
+    from vloam_tpu_torch.ops import patch_gather
+
+    _, corner = orb_corners(img, cfg)
+    patch_gather.LAUNCHES_STACK = 0
+    out = patch_gather.gather_patches_stack(blur_stack(img), corner)
+    torch.cuda.synchronize()
+    launches = patch_gather.LAUNCHES_STACK
+    assert launches == 1 and bool(torch.isfinite(out).all())
+    assert tuple(out.shape) == (len(BRISK_BLUR_SIGMAS), corner.shape[0], 32, 32)
+    print(f"  gather_patches_stack on a BRISK octave's blur stack: {launches} launch, "
+          f"{tuple(out.shape)} finite patches [{card}]")
+    return launches
+
+
+def check_variants(results, card):
+    """Phase 3c: the measurement tool, in process.  Fills ``results`` for the
+    eleven measurement kernels and returns their launches in the tool's run."""
+    from vloam_tpu_torch.ops import gather_variants as gv
+    from vloam_tpu_torch.tools import gather_experiments as tool
+
+    print(f"== phase 3c: patch-gather formulations (tools.gather_experiments.run) [{card}]")
+    gv.reset_launches()
+    rows = tool.run("cuda", runs=TIMING_RUNS)
+    launches = dict(gv.LAUNCHES)
+    for line in tool.report(rows, card)[:-1]:
+        print(f"  {line}")
+    for r in rows:
+        assert r["correct"], f"{r['name']}: kernel differs from its plain version"
+        if r["name"] in results and r["name"] != "gather_patches":
+            bytes_ms = r["nbytes"] / PEAK_BW * 1e3
+            results[r["name"]].update(ms=r["ms"], plain_ms=r["plain_ms"], bytes_ms=bytes_ms,
+                                      device_ms=r["device_ms"], library_ms=r["library_ms"],
+                                      err=r["max_abs_err"])
+            print(f"  {r['name']}: equal to its plain version; {launches[r['name']]} launches; "
+                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (median of "
+                  f"{TIMING_RUNS}), {r['device_ms']:.4f} ms a call inside a CUDA graph; bound "
+                  f"{bytes_ms:.5f} ms ({r['nbytes'] / 1e6:.3f} MB); library "
+                  + ("none" if r["library_ms"] is None else
+                     f"{r['library_ms']:.4f} ms ({r['library_device_ms']:.4f} ms inside a graph)")
+                  + f" [{card}]")
+    print("  the sweeps' bounds (G1-G5) are their strips' bytes over the HBM rate, while their "
+          "overlapping strips and repeats are served by L2 after the first pass: a time near "
+          "such a bound is an L2 rate, not an HBM one.  library: one amax over the strips' view "
+          "(G1, G2, G5) or one index call on the view of all windows (G6, G9-G11); none for "
+          "G3, G4 (a maximum per strip, then a sum per eleven: two reductions) and G7, G8 "
+          "(index arithmetic before the index call)")
+    return launches
 
 
 def association_inputs(knn_args, knn_kw, gn_args):
@@ -870,11 +1045,11 @@ def check_resume(cfg, ext, frames, card):
     fresh_device(torch.device("cuda", 0))
 
 
-def check_cli(card):
+def check_cli(card, *flags):
     """Phase 8b: ``python -m vloam_tpu_torch.runtime`` in a subprocess, on
-    its default device."""
+    its default device, with ``flags`` added."""
     cmd = [sys.executable, "-m", "vloam_tpu_torch.runtime", "--dataset", "synthetic",
-           "--frames", "4", "--json"]
+           "--frames", "4", "--json", *flags]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                          cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -883,9 +1058,82 @@ def check_cli(card):
     assert len(lines) == 1, f"CLI printed {len(lines)} lines, want one JSON line:\n{res.stdout}"
     out = json.loads(lines[0])
     assert out["frames"] == 4 and np.isfinite(out["final_err_mo_m"]), out
+    assert np.isfinite(out["final_err_vo_m"]), out
     assert out["final_err_mo_m"] / out["path_len_m"] <= DRIFT_TOL, out
     print(f"  {' '.join(cmd[1:])}: exit 0 in {time.perf_counter() - t0:.1f} s, one JSON line: "
           f"{lines[0]} [{card}]")
+
+
+def check_descriptor_mode(cfg, ext, dframes, poses, card, step_syncs):
+    """Phase 9: the full step in (D) with VO matching ORB descriptors instead
+    of tracking.  Returns the launches of the single-image patch gather."""
+    import dataclasses
+
+    from vloam_tpu_torch.models.vloam import init_vloam_state, vloam_step
+    from vloam_tpu_torch.ops import fused_gn, fused_knn, orb, patch_gather
+
+    print(f"== phase 9: full step vloam_step (D), descriptor-match mode (ORB, brute-force "
+          f"Hamming), kitti_hdl64, {len(dframes)} frames [{card}]")
+    ocfg = cfg.replace(visual=dataclasses.replace(cfg.visual, optical_flow_match=False,
+                                                  descriptor_type="orb"))
+    dev = dframes[0][0].device
+    fresh_device(dev)
+    counters = dict(launch_counters(), gather_single=lambda: patch_gather.LAUNCHES_SINGLE)
+    fused_knn.LAUNCHES = fused_gn.LAUNCHES = fused_gn.LAUNCHES_VO = 0
+    patch_gather.LAUNCHES = patch_gather.LAUNCHES_SINGLE = 0
+    vo_states = []
+
+    def step(s, f):
+        img, g, m, bk, lf = f
+        s, out = vloam_step(s, img, g, m, ext, ocfg, pre_gridded=True, pre_buckets=bk,
+                            pre_lf_table=lf)
+        vo_states.append(s.vo)
+        return s, out
+
+    state = init_vloam_state(ocfg, dev)
+    first_vo = state.vo
+    state, outs, frame_ms, per_frame, syncs = drive(step, state, dframes, counters)
+    launches = patch_gather.LAUNCHES_SINGLE
+
+    for i in range(len(dframes)):
+        got = {name: per_frame[name][i] for name in counters}
+        want = {"knn_pair": 4 if i else 0, "gn_lidar": 4 if i else 0, "gn_vo": 1,
+                "gather_patches": 0, "gather_single": 1}
+        assert got == want, f"descriptor-mode frame {i}: launches {got}, want {want}"
+    for i, out in enumerate(outs):
+        for name, v in out._asdict().items():
+            assert bool(torch.isfinite(v.to(torch.float32)).all()), \
+                f"descriptor-mode frame {i}: non-finite {name} {v}"
+    check_lidar(outs, poses, "descriptor mode")
+
+    # the matches each frame's solve saw, recomputed from the rolled descriptors
+    matches = []
+    for prev, cur in zip([first_vo] + vo_states[:-1], vo_states):
+        assert cur.prev_desc.dtype == torch.int32
+        _, valid = orb.match_descriptors(prev.prev_desc, prev.prev_desc_mask, cur.prev_desc,
+                                         cur.prev_desc_mask, ratio=ocfg.visual.match_ratio,
+                                         select=ocfg.visual.match_select)
+        matches.append(int(valid.sum()))
+    assert min(matches[1:]) >= MIN_ORB_MATCHES, \
+        f"valid matches per frame {matches}, want >= {MIN_ORB_MATCHES} from frame 1"
+    assert syncs.count <= step_syncs.count, \
+        f"frame {SYNC_FRAME}: {syncs.count} synchronising calls, KLT mode makes {step_syncs.count}"
+
+    path = SPEED * (len(outs) - 1)
+    vo_err = float(np.linalg.norm(outs[-1].world_vo[4:].cpu().numpy() - poses[len(outs) - 1][1]))
+    worst_t = max(float(np.abs(outs[i].vo_delta[4:].cpu().numpy().astype(np.float64)
+                               - gt_delta(poses, i)[1]).max()) for i in range(1, len(outs)))
+    print(f"  launches per frame: {', '.join(f'{k} {v[:3]}...' for k, v in per_frame.items())}")
+    print(f"  valid matches per frame: {matches} (bound >= {MIN_ORB_MATCHES} from frame 1); "
+          f"corners described on the last frame: {int(vo_states[-1].prev_desc_mask.sum())}")
+    print(f"  VO (not gated): worst f2f translation axis error {worst_t * 100:.2f} cm; final "
+          f"error {vo_err:.3f} m ({vo_err / path * 100:.2f} %) over {path:.1f} m")
+    print(f"  {ms_line(frame_ms, 5, card)}")
+    print(f"  synchronising calls in frame {SYNC_FRAME}: {syncs.count} ({', '.join(syncs.sites)}); "
+          f"KLT mode (phase 5): {step_syncs.count}"
+          + (f"; other warnings: {syncs.other}" if syncs.other else ""))
+    del state, vo_states
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
 """The port's plain patch gather (the CUDA kernel B2's plain version) against
-the JAX ``gather_patches_pair`` on its CPU path (``_slice_patches``).
+the JAX ``gather_patches_pair`` on its CPU path (``_slice_patches``), and
+its single-image and stacked launch forms against ``gather_patches`` and
+``gather_patches_stack``.
 
 The gather is an exact copy, so the arrays must be equal, at the three KLT
 pyramid level sizes with N = 1024 corners (P = 32), the extreme legal
@@ -11,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from vloam_tpu.ops.pallas_gather import gather_patches as jax_gather
 from vloam_tpu.ops.pallas_gather import gather_patches_pair as jax_gather_pair
+from vloam_tpu.ops.pallas_gather import gather_patches_stack as jax_gather_stack
 from vloam_tpu_torch.ops import patch_gather
 
 P, N = 32, 1024
@@ -38,6 +42,31 @@ def test_plain_equals_jax(h, w, rng):
         assert g.shape == (N, P, P)
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
     assert patch_gather.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("form", ["pair", "single", "stack"])
+def test_launch_forms_equal_jax(form, rng):
+    """The three launch forms at the ORB frontend's image size; the stack is
+    a blur stack's three images."""
+    img_a, img_b, ca, cb = _inputs(rng, 376, 1248)
+    if form == "pair":
+        want = jax_gather_pair(*(jnp.array(x) for x in (img_a, img_b, ca, cb)), P)
+        got = patch_gather.gather_patches_pair(*(torch.tensor(x) for x in (img_a, img_b, ca, cb)), P)
+        shape = (N, P, P)
+    elif form == "single":
+        want = (jax_gather(jnp.array(img_a), jnp.array(ca), P),)
+        got = (patch_gather.gather_patches(torch.tensor(img_a), torch.tensor(ca), P),)
+        shape = (N, P, P)
+    else:
+        stack = np.stack([img_a, img_b, 0.5 * (img_a + img_b)])
+        want = (jax_gather_stack(jnp.array(stack), jnp.array(ca), P),)
+        got = (patch_gather.gather_patches_stack(torch.tensor(stack), torch.tensor(ca), P),)
+        shape = (3, N, P, P)
+    for g, w_ in zip(got, want):
+        assert tuple(g.shape) == shape
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    assert (patch_gather.LAUNCHES, patch_gather.LAUNCHES_SINGLE, patch_gather.LAUNCHES_STACK) \
+        == (0, 0, 0)
 
 
 @pytest.mark.parametrize("bad", [(-1, 0), (0, -1), (1248 - P + 1, 0), (0, 376 - P + 1)])

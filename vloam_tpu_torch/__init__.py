@@ -8,10 +8,13 @@ easy to find:
            the CLI ``python -m vloam_tpu_torch.runtime``
   models : visual_odometry (VO), lidar_odometry (LO), laser_mapping (MO),
            frame_graph, vloam (the full frame step), lidar_slice (LO + MO)
-  ops    : geometry-level solvers and searches; ``knn``, ``fused_knn``,
-           ``fused_gn`` and ``patch_gather`` hold the wrappers of the
-           hand-written CUDA kernels (csrc/) beside their plain PyTorch
-           versions
+  ops    : geometry-level solvers and searches, the image frontends
+           (``image_ops`` KLT, ``orb`` descriptors and matching); ``knn``,
+           ``fused_knn``, ``fused_gn``, ``patch_gather`` and
+           ``gather_variants`` hold the wrappers of the hand-written CUDA
+           kernels (csrc/) beside their plain PyTorch versions
+  tools  : ``gather_experiments``, which times the formulations of the
+           patch gather on the GPU
   data   : NumPy host data layer (ring gridding, synthetic raycast world,
            the bench frame stream, the KITTI loaders)
   utils  : trajectory export, KITTI metrics, stage timing, checkpoints

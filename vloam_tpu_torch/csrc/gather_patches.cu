@@ -20,6 +20,12 @@
 // P = 32.  The corners arrive pre-clipped to [0, W-P] x [0, H-P] (the
 // caller's contract, pallas_gather.py:155-157): the kernel clamps nothing,
 // and a device assert traps a corner outside its image.
+//
+// A second entry, vloam_gather_patches_stack, is the stacked form the TPU
+// kernel has: imgs (n_img, H, W), one image id per patch, (n_img * n, P, P)
+// out.  Both of its callers (one image; a blur stack of one octave) cut every
+// corner from every image, so the id of patch k is k / n and its corner is
+// k % n: no id array is built or read.  Same block, same copy.
 
 #include <assert.h>
 #include <cuda_runtime.h>
@@ -50,6 +56,22 @@ gather_patches_kernel(const float* __restrict__ img_a, int ha, int wa,
   }
 }
 
+__global__ void __launch_bounds__(kRowThreads * kRowsPerPass)
+gather_stack_kernel(const float* __restrict__ imgs, int h, int w,
+                    const int* __restrict__ corners, int n, int p, float* __restrict__ out) {
+  const int img_id = blockIdx.x / n;
+  const int k = blockIdx.x - img_id * n;
+  const float* img = imgs + static_cast<size_t>(img_id) * h * w;
+  float* dst = out + static_cast<size_t>(blockIdx.x) * p * p;
+  const int cx = corners[2 * k];
+  const int cy = corners[2 * k + 1];
+  assert(cx >= 0 && cy >= 0 && cx + p <= w && cy + p <= h);
+  for (int r = threadIdx.y; r < p; r += kRowsPerPass) {
+    const float* src = img + static_cast<size_t>(cy + r) * w + cx;
+    for (int c = threadIdx.x; c < p; c += kRowThreads) dst[r * p + c] = src[c];
+  }
+}
+
 }  // namespace
 
 // img_a (ha, wa), img_b (hb, wb): row-major f32; corners_a, corners_b: (n, 2)
@@ -62,6 +84,20 @@ extern "C" int vloam_gather_patches(const float* img_a, int ha, int wa, const fl
     const dim3 block(kRowThreads, kRowsPerPass);
     gather_patches_kernel<<<2 * n, block, 0, static_cast<cudaStream_t>(stream)>>>(
         img_a, ha, wa, img_b, hb, wb, corners_a, corners_b, n, p, out_a, out_b);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// imgs (n_img, h, w): row-major f32; corners: (n, 2) int32 (x, y), shared by
+// every image; out: (n_img, n, p, p) f32.
+// Returns cudaGetLastError() after the launch.
+extern "C" int vloam_gather_patches_stack(const float* imgs, int n_img, int h, int w,
+                                          const int* corners, int n, int p, float* out,
+                                          void* stream) {
+  if (n_img * n > 0) {
+    const dim3 block(kRowThreads, kRowsPerPass);
+    gather_stack_kernel<<<n_img * n, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        imgs, h, w, corners, n, p, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

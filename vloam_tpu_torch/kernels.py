@@ -29,8 +29,9 @@ import torch
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("knn_pair.cu", "knn.cu", "gn_lidar.cu", "gn_vo.cu", "gather_patches.cu")
-HEADERS = ("knn_common.cuh", "gn_common.cuh")
+SOURCES = ("knn_pair.cu", "knn.cu", "gn_lidar.cu", "gn_vo.cu", "gather_patches.cu",
+           "gather_sweeps.cu", "gather_variants.cu")
+HEADERS = ("knn_common.cuh", "gn_common.cuh", "gather_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
@@ -46,7 +47,20 @@ _SIGNATURES = {
     "vloam_gn_lidar": [_P, _P, _I, _P, _I, _I, _F, _F, _P, _P],
     "vloam_gn_vo": [_P, _P, _I, _I, _F, _F, _P, _P],
     "vloam_gather_patches": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+    "vloam_gather_patches_stack": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
+    "vloam_whole_image": [_P, _I, _I, _P, _P],
 }
+# the strip sweeps: (imgs, n_img, h_pad, w, out, stream)
+for _name in ("vloam_sweep_sync", "vloam_sweep_ring2", "vloam_sweep_ring11",
+              "vloam_sweep_ring11_flat"):
+    _SIGNATURES[_name] = [_P, _I, _I, _I, _P, _P]
+# the gather formulations: (imgs, n_img, h_pad, w, meta, n2, out, stream), the
+# bucketed ones with (order, offsets) before out
+for _name in ("vloam_gather_narrow", "vloam_gather_dma_only", "vloam_gather_compact_only",
+              "vloam_gather_mma"):
+    _SIGNATURES[_name] = [_P, _I, _I, _I, _P, _I, _P, _P]
+for _name in ("vloam_gather_resident", "vloam_gather_resident_mma"):
+    _SIGNATURES[_name] = [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P]
 
 _lib = None
 

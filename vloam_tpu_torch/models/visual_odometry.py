@@ -1,19 +1,26 @@
 """Depth-enhanced monocular visual odometry (port of
-``vloam_tpu/models/visual_odometry.py``, the KLT branch).
+``vloam_tpu/models/visual_odometry.py``: the KLT branch and the ORB/BRIEF
+descriptor-match branch).
 
 Per frame: Shi-Tomasi corners on the current image; the previous frame's
-corners tracked into it by forward-backward pyramidal LK, seeded by the
-motion prior; depth for each previous corner from the previous frame's
-lidar depth buckets; matches with depth give 3D-2D reprojection residuals,
-the rest 2D-2D epipolar residuals; one fused GN solve (``ops/fused_gn``,
-the CUDA kernel B4) gives cam0_curr_T_cam0_last.
+corners are either tracked into it by forward-backward pyramidal LK, seeded
+by the motion prior (``optical_flow_match=True``), or matched to the current
+corners by ORB/BRIEF descriptors and brute-force Hamming distance
+(``optical_flow_match=False``, ``ops/orb``); depth for each previous corner
+from the previous frame's lidar depth buckets; matches with depth give 3D-2D
+reprojection residuals, the rest 2D-2D epipolar residuals; one fused GN
+solve (``ops/fused_gn``, the CUDA kernel B4) gives cam0_curr_T_cam0_last.
 
 ``VoState.count`` is a host ``int``: the frame-0 and coarse-pyramid
 branches are Python ``if``s, and the "enough tracks" gate is a device
 select, so a VO frame reads nothing back from the device.
 
-Not ported (ROADMAP A9): CLAHE, the descriptor frontends
-(``optical_flow_match=False``), ``keypoint_nms``, detectors other than
+Binary descriptors are int32 words holding the reference's uint32 bit
+patterns (see ``ops/orb``), in the state and in a checkpoint.
+
+Not ported (ROADMAP A9): CLAHE, the descriptor families other than ORB and
+BRIEF and the approximate (``flann``) matcher, which the reference reaches
+through its ``image_util`` facade, ``keypoint_nms``, detectors other than
 Shi-Tomasi, and the device-side depth-bucket build (``pre_buckets=None``).
 """
 
@@ -26,7 +33,7 @@ import torch
 
 from vloam_tpu_torch import geometry as geo
 from vloam_tpu_torch.config import VloamConfig
-from vloam_tpu_torch.ops import image_ops
+from vloam_tpu_torch.ops import image_ops, orb
 from vloam_tpu_torch.ops.depth_map import DepthBuckets, bucket_shape, query_depth
 from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_vo
 
@@ -35,7 +42,7 @@ class VoState(NamedTuple):
     prev_img: torch.Tensor          # (H, W)
     prev_pts: torch.Tensor          # (max_features, 2) corners detected on the prev frame
     prev_pts_mask: torch.Tensor     # (max_features,)
-    prev_desc: torch.Tensor         # (max_features, D) descriptors (unused on the KLT path)
+    prev_desc: torch.Tensor         # (max_features, D) descriptors (rolls in descriptor mode only)
     prev_desc_mask: torch.Tensor    # (max_features,)
     prev_buckets: DepthBuckets      # lidar depth map of the prev frame
     count: int                      # host frame counter
@@ -43,12 +50,13 @@ class VoState(NamedTuple):
 
 def _desc_buffer_spec(vc) -> tuple[int, torch.dtype]:
     """Descriptor buffer (width, dtype) per family: ORB/BRIEF 256-bit,
-    BRISK/FREAK/AKAZE 512-bit binary, SIFT 128-d float."""
+    BRISK/FREAK/AKAZE 512-bit binary (int32 words with the reference's
+    uint32 bit patterns), SIFT 128-d float."""
     t = vc.descriptor_type
     if t in ("orb", "brief"):
-        return 8, torch.uint32
+        return 8, torch.int32
     if t in ("brisk", "freak", "akaze"):
-        return 16, torch.uint32
+        return 16, torch.int32
     if t == "sift":
         return 128, torch.float32
     raise ValueError(f"unknown descriptor_type {t!r}")
@@ -72,11 +80,15 @@ def init_vo_state(cfg: VloamConfig, device) -> VoState:
 
 def vo_state_from_numpy(state, device) -> VoState:
     """A reference ``VoState`` whose leaves are NumPy arrays -> this port's
-    state on ``device``."""
+    state on ``device``.  uint32 descriptor words cross as the int32 view of
+    the same bits."""
     f = lambda x: torch.tensor(np.asarray(x), device=device)  # noqa: E731
+    desc = np.asarray(state.prev_desc)
+    if desc.dtype == np.uint32:
+        desc = desc.view(np.int32)
     return VoState(
         prev_img=f(state.prev_img), prev_pts=f(state.prev_pts),
-        prev_pts_mask=f(state.prev_pts_mask), prev_desc=f(state.prev_desc),
+        prev_pts_mask=f(state.prev_pts_mask), prev_desc=f(desc),
         prev_desc_mask=f(state.prev_desc_mask),
         prev_buckets=DepthBuckets(*(f(b) for b in state.prev_buckets)),
         count=int(np.asarray(state.count)),
@@ -121,9 +133,12 @@ def vo_step(state: VoState, img: torch.Tensor, K: torch.Tensor, cfg: VloamConfig
     vc = cfg.visual
     if vc.clahe:
         raise NotImplementedError("VisualConfig.clahe is not ported yet (ROADMAP A9)")
-    if not vc.optical_flow_match:
+    if not vc.optical_flow_match and not (vc.descriptor_type in ("orb", "brief")
+                                          and vc.matcher_type == "bf"):
         raise NotImplementedError(
-            "the descriptor frontends (optical_flow_match=False) are not ported yet (ROADMAP A9)")
+            f"descriptor_type={vc.descriptor_type!r} with matcher_type={vc.matcher_type!r} is "
+            "not ported yet (ROADMAP A9); descriptor mode runs ORB or BRIEF with the brute-force "
+            "matcher")
     if vc.keypoint_nms:
         raise NotImplementedError("VisualConfig.keypoint_nms is not ported yet (ROADMAP A9)")
     if pre_buckets is None:
@@ -139,21 +154,32 @@ def vo_step(state: VoState, img: torch.Tensor, K: torch.Tensor, cfg: VloamConfig
     depth0 = query_depth(state.prev_buckets, state.prev_pts, vc)
     K_inv = inv3(K)
 
-    # Seed KLT with the motion-prior flow: project each prev feature's 3D
-    # point (bucket depth, or a nominal mid-range depth) through the prior.
-    pose_pred = geo.pose_identity(dev) if lo_prior is None else lo_prior
-    d_nom = torch.where(depth0 > 0, depth0, 15.0)
-    X1_pred = geo.pose_apply(pose_pred, _unproject(K_inv, state.prev_pts, d_nom))
-    uv_pred = X1_pred @ K.T
-    uv_pred = uv_pred[:, :2] / torch.clamp(uv_pred[:, 2:3], min=1e-3)
-    init_flow = torch.clamp(uv_pred - state.prev_pts, -120.0, 120.0)
+    if vc.optical_flow_match:
+        # Seed KLT with the motion-prior flow: project each prev feature's 3D
+        # point (bucket depth, or a nominal mid-range depth) through the prior.
+        pose_pred = geo.pose_identity(dev) if lo_prior is None else lo_prior
+        d_nom = torch.where(depth0 > 0, depth0, 15.0)
+        X1_pred = geo.pose_apply(pose_pred, _unproject(K_inv, state.prev_pts, d_nom))
+        uv_pred = X1_pred @ K.T
+        uv_pred = uv_pred[:, :2] / torch.clamp(uv_pred[:, 2:3], min=1e-3)
+        init_flow = torch.clamp(uv_pred - state.prev_pts, -120.0, 120.0)
 
-    # With a real LO prior (frame >= 2) the seeded flow lands inside the
-    # level-0 patch slack, so the coarse pyramid levels are skipped.
-    skip_coarse = None if lo_prior is None else count >= 2
-    track = image_ops.lk_track_fb if vc.klt_fb_check else image_ops.lk_track
-    curr_pts, track_ok = track(state.prev_img, img, state.prev_pts, state.prev_pts_mask, vc,
-                               init_flow, skip_coarse=skip_coarse)
+        # With a real LO prior (frame >= 2) the seeded flow lands inside the
+        # level-0 patch slack, so the coarse pyramid levels are skipped.
+        skip_coarse = None if lo_prior is None else count >= 2
+        track = image_ops.lk_track_fb if vc.klt_fb_check else image_ops.lk_track
+        curr_pts, track_ok = track(state.prev_img, img, state.prev_pts, state.prev_pts_mask, vc,
+                                   init_flow, skip_coarse=skip_coarse)
+        desc, desc_mask = state.prev_desc, state.prev_desc_mask    # unused in this mode
+    else:
+        # Descriptor mode (the reference default): describe the current
+        # corners, match the previous frame's descriptors against them.
+        desc, desc_mask = orb.orb_descriptors(img, pts, pts_mask, vc,
+                                              rotate=(vc.descriptor_type == "orb"))
+        midx, track_ok = orb.match_descriptors(state.prev_desc, state.prev_desc_mask, desc,
+                                               desc_mask, ratio=vc.match_ratio,
+                                               select=vc.match_select)
+        curr_pts = pts[midx]
     track_ok = track_ok & (count > 0)
 
     # outlier gate on pixel displacement (visual_odometry.cpp:363-368)
@@ -180,8 +206,8 @@ def vo_step(state: VoState, img: torch.Tensor, K: torch.Tensor, cfg: VloamConfig
         prev_img=img,
         prev_pts=pts,
         prev_pts_mask=pts_mask,
-        prev_desc=state.prev_desc,          # unused on the KLT path
-        prev_desc_mask=state.prev_desc_mask,
+        prev_desc=desc,
+        prev_desc_mask=desc_mask,
         prev_buckets=pre_buckets,
         count=count + 1,
     )

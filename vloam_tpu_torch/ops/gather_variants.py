@@ -1,0 +1,310 @@
+"""The eleven measurement kernels of the patch-gather family (counterparts of
+the kernels inside ``tools/gather_experiments.py`` of the reference).
+
+They ask what limits the patch gather of ``ops/patch_gather`` and are run by
+``vloam_tpu_torch.tools.gather_experiments``, not by the frame step:
+
+  ====  ======================  ===========================================
+  G1    ``strip_sweep``         read every 40-row strip, one chunk at a time
+  G2    ``strip_sweep_db``      ... the next chunk in flight (2 slots)
+  G3    ``strip_sweep_batched`` ... eleven chunks in flight, 11 strips a block
+  G4    ``strip_sweep_flat``    G3 on the (n_img * H_pad, W_pad) 2-D view
+  G5    ``whole_image``         both images, contiguous, ``reps`` times
+  G6    ``gather_narrow``       exact gather from the 128-byte lines it needs
+  G7    ``dma_only``            transport only: the band's raw corner
+  G8    ``compact_only``        compaction only: one band per 32 keypoints
+  G9    ``gather_resident``     exact gather from a strip staged once
+  G10   ``gather_mma``          exact gather, column shift on tensor cores
+  G11   ``gather_resident_mma`` G9's strip feeding G10's extraction
+  ====  ======================  ===========================================
+
+The sweeps (G1-G5) reduce what they read so that every copy can be checked:
+G1 and G2 return the maximum of each strip ``padded[b, base:base+40, :]``
+(``n_img * n_bases`` floats, bases 0, 8, ...), G3 and G4 the sum, added in
+order, of each 11 consecutive strip maxima, G5 ``reps`` times the maximum of
+the whole array.  (The TPU kernels keep only their last step's value: their
+grid runs in order, a CUDA grid does not.)  The gathers (G6-G11) take the
+padded image stack ``(n_img, H_pad, W_pad)`` and ``meta`` ``(3, N)`` int32,
+rows ``(image id; cx; cy)``, and return ``(N, 32, 32)``; G6, G9, G10 and G11
+are the exact gather, G7 and G8 are defined on the padded array (see their
+plain versions).
+
+Every wrapper launches its kernel (``csrc/gather_sweeps.cu``,
+``csrc/gather_variants.cu``) for CUDA tensors and counts the launch in
+``LAUNCHES``; CPU tensors take the plain PyTorch version (``*_reference``).
+Nothing falls back from one to the other.  All results are bit-equal to the
+plain versions.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from vloam_tpu_torch import kernels
+
+P = 32            # patch side
+P8 = P + 8        # rows of a strip or band
+BAND = 256        # columns of a band, from a 128-aligned base
+BLOCK_KP = 32     # keypoints that share one band in compact_only
+BATCH = 11        # strips per block, and chunks in flight, of the batched sweeps
+REPS = 10         # repeats of whole_image
+
+NAMES = ("strip_sweep", "strip_sweep_db", "strip_sweep_batched", "strip_sweep_flat",
+         "whole_image", "gather_narrow", "dma_only", "compact_only", "gather_resident",
+         "gather_mma", "gather_resident_mma")
+LAUNCHES = {name: 0 for name in NAMES}   # kernel launches per wrapper (plain calls do not count)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def pad_img(img: torch.Tensor) -> torch.Tensor:
+    """(H, W) -> (H_pad, W_pad), zero-padded so that a 40-row band from the
+    8-aligned row base, and a 256-column band from the 128-aligned column
+    base, of any legal corner stay in bounds (the reference's ``pad_img``)."""
+    H, W = img.shape
+    H_pad = ((H - 1) // 8 + 2) * 8
+    W_pad = ((W - 1) // 128 + 2) * 128
+    return F.pad(img, (0, W_pad - W, 0, H_pad - H))
+
+
+def n_bases(h_pad: int) -> int:
+    """8-aligned row bases of the 40-row strips of one padded image."""
+    return (h_pad - P8) // 8 + 1
+
+
+# --- plain versions -----------------------------------------------------------
+
+def strip_maxima(imgs: torch.Tensor) -> torch.Tensor:
+    """(n_img, H_pad, W_pad) -> (n_img * n_bases,): max of every strip."""
+    return imgs.unfold(1, P8, 8).amax(dim=(2, 3)).reshape(-1)
+
+
+def strip_sweep_reference(imgs):
+    return strip_maxima(imgs)
+
+
+strip_sweep_db_reference = strip_sweep_reference
+
+
+def strip_sweep_batched_reference(imgs):
+    m = strip_maxima(imgs).reshape(-1, BATCH)
+    acc = torch.zeros_like(m[:, 0])
+    for k in range(BATCH):           # added in order, as the kernel adds them
+        acc = acc + m[:, k]
+    return acc
+
+
+def strip_sweep_flat_reference(img2d, n_img: int):
+    return strip_sweep_batched_reference(img2d.reshape(n_img, -1, img2d.shape[1]))
+
+
+def whole_image_reference(img2d, reps: int = REPS):
+    return img2d.amax().repeat(reps)
+
+
+def _windows(imgs, ids, rows, cols):
+    """imgs[ids[k], rows[k]:rows[k]+P, cols[k]:cols[k]+P] for every k."""
+    n_img, h, w = imgs.shape
+    ids, rows, cols = ids.to(torch.int64), rows.to(torch.int64), cols.to(torch.int64)
+    bad = (ids < 0) | (ids >= n_img) | (rows < 0) | (cols < 0) | (rows > h - P) | (cols > w - P)
+    if bool(bad.any()):
+        raise ValueError("gather variants: a window lies outside its image")
+    off = torch.arange(P, device=imgs.device)
+    return imgs[ids[:, None, None], (rows[:, None] + off)[:, :, None],
+                (cols[:, None] + off)[:, None, :]]
+
+
+def gather_reference(imgs, meta):
+    """The exact gather: the plain version of G6, G9, G10 and G11."""
+    return _windows(imgs, meta[0], meta[2], meta[1])
+
+
+gather_narrow_reference = gather_resident_reference = gather_reference
+gather_mma_reference = gather_resident_mma_reference = gather_reference
+
+
+def dma_only_reference(imgs, meta):
+    """out[k] = imgs[b, cy8:cy8+P, cx128:cx128+P]: the raw corner of the band."""
+    return _windows(imgs, meta[0], meta[2] - meta[2] % 8, meta[1] - meta[1] % 128)
+
+
+def compact_only_reference(imgs, meta):
+    """Every block of 32 keypoints cuts from the band of its first keypoint:
+    out[k] = band0[dy_k:dy_k+P, dx_k:dx_k+P] with the k-th keypoint's own
+    (dy, dx) = (cy % 8, cx % 128)."""
+    first = meta[:, ::BLOCK_KP].repeat_interleave(BLOCK_KP, dim=1)
+    return _windows(imgs, first[0], first[2] - first[2] % 8 + meta[2] % 8,
+                    first[1] - first[1] % 128 + meta[1] % 128)
+
+
+# --- wrappers -------------------------------------------------------------------
+
+def _check_imgs(name, imgs, dims):
+    kernels.require_cuda(name, imgs)
+    if imgs.dim() != dims or imgs.dtype != torch.float32 or not imgs.is_contiguous():
+        raise ValueError(f"{name}: the images must be a contiguous float32 tensor of {dims} dims")
+    if imgs.shape[-1] % 128 != 0 or imgs.shape[-2] % 8 != 0 or imgs.shape[-2] < P8:
+        raise ValueError(f"{name}: the images must be padded (pad_img)")
+
+
+def _sweep(name, entry, imgs, n_img, h_pad, per_block):
+    strips = n_img * n_bases(h_pad)
+    if strips % per_block != 0:
+        raise ValueError(f"{name}: {strips} strips do not split into groups of {per_block}")
+    out = torch.empty((strips // per_block,), dtype=torch.float32, device=imgs.device)
+    rc = getattr(kernels.lib(), entry)(imgs.data_ptr(), n_img, h_pad, imgs.shape[-1],
+                                       out.data_ptr(), kernels.stream_ptr(imgs.device))
+    kernels.check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def strip_sweep(imgs):
+    """G1: (n_img, H_pad, W_pad) -> (n_img * n_bases,) strip maxima; synchronous staging."""
+    if imgs.device.type == "cpu":
+        return strip_sweep_reference(imgs)
+    _check_imgs("strip_sweep", imgs, 3)
+    return _sweep("strip_sweep", "vloam_sweep_sync", imgs, imgs.shape[0], imgs.shape[1], 1)
+
+
+def strip_sweep_db(imgs):
+    """G2: as G1 through a two-slot asynchronous ring."""
+    if imgs.device.type == "cpu":
+        return strip_sweep_db_reference(imgs)
+    _check_imgs("strip_sweep_db", imgs, 3)
+    return _sweep("strip_sweep_db", "vloam_sweep_ring2", imgs, imgs.shape[0], imgs.shape[1], 1)
+
+
+def strip_sweep_batched(imgs):
+    """G3: -> (n_img * n_bases / 11,) sums of 11 strip maxima; eleven-slot ring."""
+    if imgs.device.type == "cpu":
+        return strip_sweep_batched_reference(imgs)
+    _check_imgs("strip_sweep_batched", imgs, 3)
+    return _sweep("strip_sweep_batched", "vloam_sweep_ring11", imgs, imgs.shape[0],
+                  imgs.shape[1], BATCH)
+
+
+def strip_sweep_flat(img2d, n_img: int):
+    """G4: G3 on the (n_img * H_pad, W_pad) view of the same memory."""
+    if img2d.device.type == "cpu":
+        return strip_sweep_flat_reference(img2d, n_img)
+    _check_imgs("strip_sweep_flat", img2d, 2)
+    if img2d.shape[0] % n_img != 0:
+        raise ValueError("strip_sweep_flat: the rows do not split into n_img images")
+    return _sweep("strip_sweep_flat", "vloam_sweep_ring11_flat", img2d, n_img,
+                  img2d.shape[0] // n_img, BATCH)
+
+
+def whole_image(img2d, reps: int = REPS):
+    """G5: -> (reps,), each the maximum of the whole array."""
+    if img2d.device.type == "cpu":
+        return whole_image_reference(img2d, reps)
+    _check_imgs("whole_image", img2d, 2)
+    out = torch.full((reps,), float("-inf"), dtype=torch.float32, device=img2d.device)
+    rc = kernels.lib().vloam_whole_image(img2d.data_ptr(), img2d.numel(), reps, out.data_ptr(),
+                                         kernels.stream_ptr(img2d.device))
+    kernels.check(rc, "whole_image")
+    LAUNCHES["whole_image"] += 1
+    return out
+
+
+def _check_meta(name, imgs, meta):
+    _check_imgs(name, imgs, 3)
+    kernels.require_cuda(name, imgs, meta)
+    if meta.dim() != 2 or meta.shape[0] != 3 or meta.dtype != torch.int32 \
+            or not meta.is_contiguous():
+        raise ValueError(f"{name}: meta must be contiguous (3, N) int32")
+
+
+def _gather(name, entry, imgs, meta, *extra):
+    n_img, h_pad, w = imgs.shape
+    n2 = meta.shape[1]
+    out = torch.empty((n2, P, P), dtype=torch.float32, device=imgs.device)
+    rc = getattr(kernels.lib(), entry)(
+        imgs.data_ptr(), n_img, h_pad, w, meta.data_ptr(), n2, *(t.data_ptr() for t in extra),
+        out.data_ptr(), kernels.stream_ptr(imgs.device))
+    kernels.check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def gather_narrow(imgs, meta):
+    """G6: the exact gather, staging only the 128-byte lines each window touches."""
+    if imgs.device.type == "cpu":
+        return gather_narrow_reference(imgs, meta)
+    _check_meta("gather_narrow", imgs, meta)
+    return _gather("gather_narrow", "vloam_gather_narrow", imgs, meta)
+
+
+def dma_only(imgs, meta):
+    """G7: the (40, 256) band of each keypoint staged, its raw corner written."""
+    if imgs.device.type == "cpu":
+        return dma_only_reference(imgs, meta)
+    _check_meta("dma_only", imgs, meta)
+    return _gather("dma_only", "vloam_gather_dma_only", imgs, meta)
+
+
+def compact_only(imgs, meta):
+    """G8: one band per block of 32 keypoints, every window cut from it."""
+    if meta.shape[1] % BLOCK_KP != 0:
+        raise ValueError(f"compact_only: the keypoint count must be a multiple of {BLOCK_KP}")
+    if imgs.device.type == "cpu":
+        return compact_only_reference(imgs, meta)
+    _check_meta("compact_only", imgs, meta)
+    return _gather("compact_only", "vloam_gather_compact_only", imgs, meta)
+
+
+def band_buckets(imgs, meta):
+    """Keypoints bucketed by (image, 8-row band): (order (N,) int64, the
+    keypoint indices sorted by bucket; offsets (n_img * n_bands + 1,) int64,
+    where each bucket starts in ``order``).  A stable sort and a
+    ``searchsorted``: nothing is read back from the device."""
+    n_img, h_pad, _ = imgs.shape
+    bands = n_bases(h_pad)
+    key = meta[0].to(torch.int64) * bands + (meta[2] // 8).to(torch.int64)
+    skey, order = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(
+        skey, torch.arange(n_img * bands + 1, dtype=torch.int64, device=meta.device))
+    return order.contiguous(), offsets.contiguous()
+
+
+_RESIDENT_ENTRY = {"gather_resident": "vloam_gather_resident",
+                   "gather_resident_mma": "vloam_gather_resident_mma"}
+
+
+def _resident(name, imgs, meta, buckets=None):
+    """The launch of G9 or G11; ``buckets`` takes a ready ``band_buckets(imgs, meta)``."""
+    _check_meta(name, imgs, meta)
+    if P8 * imgs.shape[2] * 4 > 232448:
+        raise ValueError(f"{name}: a 40-row strip of {imgs.shape[2]} columns does not fit a "
+                         "block's shared memory")
+    order, offsets = band_buckets(imgs, meta) if buckets is None else buckets
+    return _gather(name, _RESIDENT_ENTRY[name], imgs, meta, order, offsets)
+
+
+def gather_resident(imgs, meta):
+    """G9: the exact gather; each (image, band) strip is staged once and all
+    its windows are written from there."""
+    if imgs.device.type == "cpu":
+        return gather_resident_reference(imgs, meta)
+    return _resident("gather_resident", imgs, meta)
+
+
+def gather_mma(imgs, meta):
+    """G10: the exact gather; the column shift is a one-hot product on the
+    tensor cores (three exact TF32 terms per value), bit-equal to a copy."""
+    if imgs.device.type == "cpu":
+        return gather_mma_reference(imgs, meta)
+    _check_meta("gather_mma", imgs, meta)
+    return _gather("gather_mma", "vloam_gather_mma", imgs, meta)
+
+
+def gather_resident_mma(imgs, meta):
+    """G11: G9's resident strip with G10's tensor-core extraction."""
+    if imgs.device.type == "cpu":
+        return gather_resident_mma_reference(imgs, meta)
+    return _resident("gather_resident_mma", imgs, meta)

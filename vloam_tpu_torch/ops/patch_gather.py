@@ -1,18 +1,22 @@
-"""Patch gather for the KLT tracker (counterpart of
-``vloam_tpu/ops/pallas_gather.gather_patches_pair``).
+"""Patch gather for the 2D frontend (counterpart of
+``vloam_tpu/ops/pallas_gather``): the three launch forms of one kernel.
 
-``gather_patches_pair`` launches the CUDA kernel ``csrc/gather_patches.cu``
-for CUDA tensors and uses the plain PyTorch version,
-``gather_patches_pair_reference``, for CPU tensors; it never falls back from
-one to the other.  Both are an exact copy of the (P, P) window
-``img[cy:cy+P, cx:cx+P]`` at each corner (the reference's ``_slice_patches``
-semantics, image_ops.py:258-263).  Corners are (N, 2) int32 ``(x, y)``,
-pre-clipped by the caller to ``[0, W-P] x [0, H-P]``; nothing clamps them
-here, and the plain version raises on one out of range.
+  * ``gather_patches_pair``: two images, a corner set each, one launch (the
+    KLT tracker's template and search patches);
+  * ``gather_patches``: one image (the ORB/BRIEF descriptor support);
+  * ``gather_patches_stack``: a (C, H, W) stack, every image's patch at every
+    corner, one launch (a blur stack of one octave).
 
-The single-image and stacked variants (``gather_patches``,
-``gather_patches_stack``) serve only the descriptor frontends and are not
-ported (ROADMAP A9).
+Each launches its entry of ``csrc/gather_patches.cu`` for CUDA tensors and
+uses its plain PyTorch version (``*_reference``) for CPU tensors; it never
+falls back from one to the other.  All are an exact copy of the (P, P)
+window ``img[cy:cy+P, cx:cx+P]`` at each corner (the reference's
+``_slice_patches`` semantics, image_ops.py:258-263).  Corners are (N, 2)
+int32 ``(x, y)``, pre-clipped by the caller to ``[0, W-P] x [0, H-P]``;
+nothing clamps them here (JAX's ``dynamic_slice`` would), the plain version
+raises on one out of range and the kernel traps.  No padding and no rule on
+N or W: the TPU kernel's blocks of 32 keypoints and 256-lane bands have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -22,14 +26,16 @@ import torch
 from vloam_tpu_torch import kernels
 
 P_DEFAULT = 32
-LAUNCHES = 0  # kernel launches by gather_patches_pair (plain-version calls do not count)
+LAUNCHES = 0         # kernel launches by gather_patches_pair (plain-version calls do not count)
+LAUNCHES_SINGLE = 0  # ... by gather_patches
+LAUNCHES_STACK = 0   # ... by gather_patches_stack
 
 
 def _slice_patches(img: torch.Tensor, corners: torch.Tensor, P: int) -> torch.Tensor:
     H, W = img.shape
     cx, cy = corners[:, 0].to(torch.int64), corners[:, 1].to(torch.int64)
     if bool(((cx < 0) | (cy < 0) | (cx > W - P) | (cy > H - P)).any()):
-        raise ValueError(f"gather_patches_pair: a corner lies outside [0, {W - P}] x [0, {H - P}]")
+        raise ValueError(f"gather_patches: a corner lies outside [0, {W - P}] x [0, {H - P}]")
     off = torch.arange(P, device=img.device)
     rows = cy[:, None] + off                                   # (N, P)
     cols = cx[:, None] + off
@@ -67,3 +73,57 @@ def gather_patches_pair(img_a, img_b, corners_a, corners_b, P: int = P_DEFAULT):
     kernels.check(rc, "gather_patches_pair")
     LAUNCHES += 1
     return out_a, out_b
+
+
+def gather_patches_reference(img, corners, P: int = P_DEFAULT):
+    """Plain PyTorch version of ``gather_patches``: one (N, P, P) index gather."""
+    return _slice_patches(img, corners, P)
+
+
+def gather_patches_stack_reference(imgs, corners, P: int = P_DEFAULT):
+    """Plain PyTorch version of ``gather_patches_stack``: (C, N, P, P), the
+    reference's ``_slice_patches_multi`` transposed (pallas_gather.py:145)."""
+    return torch.stack([_slice_patches(img, corners, P) for img in imgs])
+
+
+def _launch_stack(name, imgs, corners, P):
+    kernels.require_cuda(name, imgs, corners)
+    if imgs.dtype != torch.float32 or not imgs.is_contiguous():
+        raise ValueError(f"{name}: the image must be contiguous float32")
+    if corners.dtype != torch.int32 or not corners.is_contiguous():
+        raise ValueError(f"{name}: corners must be contiguous int32")
+    n = corners.shape[0]
+    if corners.shape != (n, 2):
+        raise ValueError(f"{name}: corners must be (N, 2)")
+    c, h, w = imgs.shape
+    out = torch.empty((c, n, P, P), dtype=torch.float32, device=imgs.device)
+    rc = kernels.lib().vloam_gather_patches_stack(
+        imgs.data_ptr(), c, h, w, corners.data_ptr(), n, P, out.data_ptr(),
+        kernels.stream_ptr(imgs.device))
+    kernels.check(rc, name)
+    return out
+
+
+def gather_patches(img, corners, P: int = P_DEFAULT):
+    """Single-image form: (N, P, P) patches of one (H, W) f32 image."""
+    global LAUNCHES_SINGLE
+    if img.device.type == "cpu":
+        return gather_patches_reference(img, corners, P)
+    if img.dim() != 2:
+        raise ValueError("gather_patches: the image must be (H, W)")
+    out = _launch_stack("gather_patches", img[None], corners, P)
+    LAUNCHES_SINGLE += 1
+    return out[0]
+
+
+def gather_patches_stack(imgs, corners, P: int = P_DEFAULT):
+    """Stacked form: every image's patch at every corner, (C, N, P, P), from
+    a (C, H, W) f32 stack in one launch."""
+    global LAUNCHES_STACK
+    if imgs.device.type == "cpu":
+        return gather_patches_stack_reference(imgs, corners, P)
+    if imgs.dim() != 3:
+        raise ValueError("gather_patches_stack: the images must be (C, H, W)")
+    out = _launch_stack("gather_patches_stack", imgs, corners, P)
+    LAUNCHES_STACK += 1
+    return out

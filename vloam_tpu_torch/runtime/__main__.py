@@ -5,14 +5,19 @@ Replaces the reference's actionlib goal {date, seq, start_frame, end_frame}
 (vloam_main.action:1-10) + launch-file parameter surface with flags.
 
 It runs on the GPU unless ``--device cpu`` is given; without a GPU the
-default raises.  Flags of features that are not ported yet (``--refine``,
-``--loop-closure``, ``--debug-dir``, the descriptor-matching and CLAHE
-options, ``--distortion``, ``--exclude-unreliable``) are passed on and the
-module that would implement them raises ``NotImplementedError``.
+default raises.  ``--descriptor-match`` runs VO on ORB (or ``--descriptor
+brief``) descriptors with the brute-force matcher.  Flags of features that
+are not ported yet (``--refine``, ``--loop-closure``, ``--debug-dir``, the
+other descriptor families and detectors, ``--matcher flann``, ``--clahe``,
+``--distortion``, ``--exclude-unreliable``) are passed on and the module
+that would implement them raises ``NotImplementedError``.
 
 Examples:
   # synthetic end-to-end smoke (no data needed)
   python -m vloam_tpu_torch.runtime --dataset synthetic --frames 10
+
+  # the same with VO matching ORB descriptors instead of tracking (KLT)
+  python -m vloam_tpu_torch.runtime --dataset synthetic --frames 10 --descriptor-match
 
   # KITTI raw drive, decoupled mode, trajectories into results/
   python -m vloam_tpu_torch.runtime --dataset raw --root /data/kitti \\

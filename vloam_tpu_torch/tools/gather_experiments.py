@@ -1,0 +1,237 @@
+"""Measure formulations of the patch gather on the GPU (counterpart of the
+reference's ``tools/gather_experiments.py``).
+
+    python -m vloam_tpu_torch.tools.gather_experiments
+
+At the ``kitti_hdl64`` shapes (two 376x1248 f32 images, 1024 corners per
+image from ``default_rng(0)``, 32x32 patches; padded images 384x1408, 88
+strips of 40 rows) it times, by CUDA events, and checks against its plain
+PyTorch version (equality):
+
+  A       the shipped two-image kernel ``gather_patches_pair``;
+  G1-G5   strip and whole-image sweeps under different copy disciplines;
+  G6-G11  other formulations of the gather (``ops/gather_variants``);
+  C       the plain index gather.
+
+One line per variant: the median ms of one call by CUDA events (at these
+sizes mostly the launch path: an empty kernel times about the same), the
+device ms per call when 20 calls are captured in one CUDA graph and replayed
+(no Python and no launch path in it: the number to compare formulations by),
+GB/s of the device time for the sweeps (all repeats after the first find the
+4.3 MB of images in the L2 cache, so this is an L2 rate, not an HBM rate),
+the plain version's ms, the ms of the one PyTorch call that computes the
+same function where there is one (``library``: ``amax`` over an ``unfold``
+or ``expand`` view for G1, G2 and G5, one index call on an ``unfold`` view
+for the exact gathers), ``correct=``; then the card's name and power limit.
+It needs a GPU and exits nonzero without one.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+RUNS = 20
+LABELS = {
+    "strip_sweep": "G1 strip sweep, synchronous staging",
+    "strip_sweep_db": "G2 strip sweep, two-slot ring",
+    "strip_sweep_batched": "G3 strip sweep, eleven-slot ring",
+    "strip_sweep_flat": "G4 eleven-slot ring, flat 2-D view",
+    "whole_image": "G5 whole images x10, grid-stride",
+    "gather_narrow": "G6 gather from the needed 128-B lines",
+    "dma_only": "G7 transport only (band, raw corner)",
+    "compact_only": "G8 compaction only (1 band/32 kp)",
+    "gather_resident": "G9 gather from a resident strip",
+    "gather_mma": "G10 gather, tensor-core column shift",
+    "gather_resident_mma": "G11 resident strip + tensor cores",
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, runs: int = RUNS) -> float:
+    """Median milliseconds of fn() over ``runs`` calls, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 7) -> float:
+    """Device milliseconds per call of fn(): ``calls`` calls captured into one
+    CUDA graph, the median replay time divided by ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, replays) / calls
+
+
+def make_inputs(device):
+    """The experiment's inputs, from NumPy's ``default_rng(0)`` in the order
+    the reference tool draws them."""
+    from vloam_tpu_torch.config import kitti_hdl64
+    from vloam_tpu_torch.ops import gather_variants as gv
+
+    vc = kitti_hdl64().visual
+    H, W, N, P = vc.img_height, vc.img_width, vc.max_features, gv.P
+    rng = np.random.default_rng(0)
+    img_a = torch.tensor(rng.uniform(0, 255, (H, W)).astype(np.float32), device=device)
+    img_b = torch.tensor(rng.uniform(0, 255, (H, W)).astype(np.float32), device=device)
+    corners = torch.tensor(
+        np.stack([rng.integers(0, W - P, N), rng.integers(0, H - P, N)], -1).astype(np.int32),
+        device=device)
+    imgs = torch.stack([gv.pad_img(img_a), gv.pad_img(img_b)])
+    ids = torch.cat([torch.zeros(N, dtype=torch.int32, device=device),
+                     torch.ones(N, dtype=torch.int32, device=device)])
+    cxy = torch.cat([corners, corners])
+    meta = torch.stack([ids, cxy[:, 0], cxy[:, 1]]).contiguous()
+    return img_a, img_b, corners, imgs, meta
+
+
+def window_view(imgs):
+    """(..., H, W) -> (..., H-P+1, W-P+1, P, P): every (P, P) window, as a view."""
+    from vloam_tpu_torch.ops.gather_variants import P
+
+    return imgs.unfold(-2, P, 1).unfold(-2, P, 1)
+
+
+def run(device="cuda", runs: int = RUNS) -> list[dict]:
+    """Time and check every variant; one dict per line of the report:
+    name, label, ms (one call, CUDA events), device_ms (per call inside a
+    replayed CUDA graph; None for the plain gather, which reads the device),
+    plain_ms, library_ms and library_device_ms (the one PyTorch call that
+    computes the same function, itself held equal to the plain version, timed
+    both ways; None where there is none), nbytes (what the function must move: inputs once, outputs once; a
+    sweep's input is every strip it reads, so its bound is an HBM time for
+    bytes that, overlapping and repeated, mostly come from L2), sweep_bytes
+    (what a sweep reads, for its GB/s; None for the gathers), max_abs_err
+    (kernel against plain), correct."""
+    from vloam_tpu_torch.ops import gather_variants as gv
+    from vloam_tpu_torch.ops import patch_gather
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError("gather_experiments measures the GPU kernels: it needs a CUDA device")
+    img_a, img_b, corners, imgs, meta = make_inputs(device)
+    n_img, h_pad, w_pad = imgs.shape
+    img2d = imgs.reshape(n_img * h_pad, w_pad)
+    img_bytes = imgs.numel() * 4
+    n_strips = n_img * gv.n_bases(h_pad)
+    sweep_bytes = n_strips * gv.P8 * w_pad * 4
+    rows = []
+
+    def add(name, label, kernel, plain, nbytes, swept=None, library=None):
+        tup = lambda v: v if isinstance(v, tuple) else (v,)  # noqa: E731
+        got, want = tup(kernel()), tup(plain())
+        torch.cuda.synchronize()
+        if library is not None and not torch.equal(library().reshape(want[0].shape), want[0]):
+            raise AssertionError(f"{name}: the library call differs from the plain version")
+        rows.append({"name": name, "label": label, "ms": time_ms(kernel, runs),
+                     "device_ms": None if kernel is plain else graph_ms(kernel),
+                     "plain_ms": time_ms(plain, runs),
+                     "library_ms": None if library is None else time_ms(library, runs),
+                     "library_device_ms": None if library is None else graph_ms(library),
+                     "nbytes": nbytes, "sweep_bytes": swept,
+                     "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+                     "correct": all(torch.equal(g, w) for g, w in zip(got, want))})
+
+    # both images and both corner sets read once, both patch stacks written once
+    pair_bytes = (img_a.numel() + img_b.numel()) * 4 + 2 * corners.numel() * 4 \
+        + 2 * corners.shape[0] * gv.P * gv.P * 4
+    pair = lambda: patch_gather.gather_patches_pair(img_a, img_b, corners, corners, gv.P)  # noqa: E731
+    plain_pair = lambda: patch_gather.gather_patches_pair_reference(  # noqa: E731
+        img_a, img_b, corners, corners, gv.P)
+    add("gather_patches_pair", "A shipped two-image kernel", pair, plain_pair, pair_bytes)
+
+    for name, args in (("strip_sweep", (imgs,)), ("strip_sweep_db", (imgs,)),
+                       ("strip_sweep_batched", (imgs,)), ("strip_sweep_flat", (img2d, n_img))):
+        kernel, plain = getattr(gv, name), getattr(gv, name + "_reference")
+        n_out = n_strips // (1 if name in ("strip_sweep", "strip_sweep_db") else gv.BATCH)
+        # G1, G2: one amax over the strips' view.  G3, G4: a maximum per strip and
+        # then a sum per eleven strips are two reductions, so no one call.
+        library = (lambda: imgs.unfold(1, gv.P8, 8).amax(dim=(2, 3))) if n_out == n_strips else None
+        add(name, LABELS[name], lambda k=kernel, a=args: k(*a), lambda p=plain, a=args: p(*a),
+            sweep_bytes + 4 * n_out, sweep_bytes, library)
+    add("whole_image", LABELS["whole_image"], lambda: gv.whole_image(img2d),
+        lambda: gv.whole_image_reference(img2d), gv.REPS * img_bytes + 4 * gv.REPS,
+        gv.REPS * img_bytes, lambda: img2d.expand(gv.REPS, -1, -1).amax(dim=(1, 2)))
+
+    # G6, G9, G10, G11 are the shipped gather's function, whose inputs are the
+    # unpadded images (the padding serves the band arithmetic, it is not data the
+    # function needs): they get the shipped kernel's bytes.  G7 and G8 are defined
+    # on the padded array: the padded images and meta read once, the patches written once.
+    padded_bytes = img_bytes + meta.numel() * 4 + meta.shape[1] * gv.P * gv.P * 4
+    windows = window_view(imgs)
+    ids, cx, cy = meta
+    for name in ("gather_narrow", "dma_only", "compact_only", "gather_resident", "gather_mma",
+                 "gather_resident_mma"):
+        kernel, plain = getattr(gv, name), getattr(gv, name + "_reference")
+        exact = name not in ("dma_only", "compact_only")
+        # the exact gather is one index call on the view of all windows; G7's and
+        # G8's window positions take index arithmetic first, so no one call
+        add(name, LABELS[name], lambda k=kernel: k(imgs, meta), lambda p=plain: p(imgs, meta),
+            pair_bytes if exact else padded_bytes,
+            library=(lambda: windows[ids, cy, cx]) if exact else None)
+    # the two bucketed variants again with the buckets made beforehand: the kernel alone
+    buckets = gv.band_buckets(imgs, meta)
+    for name in ("gather_resident", "gather_resident_mma"):
+        alone = lambda n=name: gv._resident(n, imgs, meta, buckets)  # noqa: E731
+        next(r for r in rows if r["name"] == name).update(
+            kernel_only_ms=time_ms(alone, runs), kernel_only_device_ms=graph_ms(alone))
+
+    add("plain_gather", "C plain PyTorch index gather", plain_pair, plain_pair, pair_bytes)
+    return rows
+
+
+def report(rows, card: str) -> list[str]:
+    lines = []
+    for r in rows:
+        line = f"{r['label']:<40}: {r['ms']:8.4f} ms"
+        if r["device_ms"] is not None:
+            line += f", on the device {r['device_ms']:.4f} ms"
+        if r["sweep_bytes"] is not None:
+            line += (f" ({r['sweep_bytes'] / 1e6:.1f} MB, "
+                     f"{r['sweep_bytes'] / 1e6 / r['device_ms']:.0f} GB/s, L2 after the first pass)")
+        if "kernel_only_ms" in r:
+            line += (f" ({r['kernel_only_ms']:.4f} and {r['kernel_only_device_ms']:.4f} ms with "
+                     f"the buckets made beforehand)")
+        if r["name"] not in ("gather_patches_pair", "plain_gather"):
+            line += f"  plain {r['plain_ms']:.4f} ms"
+        if r["library_ms"] is not None:
+            line += (f"  library {r['library_ms']:.4f} ms, on the device "
+                     f"{r['library_device_ms']:.4f} ms")
+        lines.append(line + f"  correct={r['correct']}")
+    lines.append(card)
+    return lines
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA GPU", file=sys.stderr)
+        return 1
+    rows = run("cuda")
+    print("\n".join(report(rows, card_line())))
+    return 0 if all(r["correct"] for r in rows) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
