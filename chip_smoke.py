@@ -11,15 +11,23 @@ Phases, each printed on its own lines:
    at once) and its seconds;
 3. each kernel against its plain PyTorch version on the card, on the
    arguments the frame step passes it (captured from a warm-up drive of the
-   full step): the k-NN pair and lidar GN at LO's and MO's call shapes, the
+   full step): the k-NN pair and lidar GN at LO's and MO's call shapes (the
+   k-NN bit for bit, d2 and idx; MO's with the mapping step's search radius
+   and without it, with the share of tile steps the radius skips, at frame
+   15 and again at frame 35, after the submap cache has been rebuilt in Morton
+   order), the k-NN
+   problems of ``tools.knn_check.cases`` made to break a kernel that splits
+   and merges, the
    single-problem k-NN on each group of the MO call (also against the pair
    kernel, bit for bit; ``nn1``; one k outside the register instantiations)
    and the map association built on it, the VO GN solve on a tracked frame,
    the KLT patch gather at the two coarse pyramid levels of frame 1 and
    at level 0 of a tracked frame, and its single-image and stacked launch
    forms at the ORB frontend's shape and at a BRISK blur stack's; with the
-   tolerances below, the median times of both (CUDA events, 20 runs) and
-   each kernel's roofline bound.
+   tolerances below, the median times of both (CUDA events, 20 runs), for
+   the k-NN and Gauss-Newton kernels the device time per call when 20 calls
+   are captured in one CUDA graph and replayed, and each kernel's roofline
+   bound.
    Then (3b) the single-problem map association path, driven with the
    launch counts at 0: MO's two outer iterations with one k-NN launch per
    feature type, against the fused path from the same pose;
@@ -71,7 +79,10 @@ import torch
 
 N_FRAMES = 40          # full step (D), phase 5
 N_SHORT = 12           # lidar slice (phase 4) and coupled mode (phase 6)
-N_WARMUP = 16          # frames of the warm-up drive whose calls feed phase 3
+N_WARMUP = 36          # frames of the warm-up drive whose calls feed phase 3
+KERNEL_FRAME = 15      # the steady frame whose calls phase 3 checks and times
+REBUILT_FRAME = 35     # a frame after the course crossed a cube boundary (near frame 32): MO's
+                       # submap cache has been rebuilt, in Morton order, from the filled map
 SYNC_FRAME = 11        # the steady frame whose synchronising calls are counted
 SPEED, YAW_RATE = 0.8, 0.005
 TIMING_RUNS = 20
@@ -259,7 +270,7 @@ def main() -> int:
     results, calls = check_kernels(cfg, ext, dframes, card)
     launches = {"knn": check_single_association(cfg, calls, card)}
     del calls
-    launches["gather_patches_stack"] = check_stack_path(cfg, dframes[N_WARMUP - 1][0], card)
+    launches["gather_patches_stack"] = check_stack_path(cfg, dframes[KERNEL_FRAME][0], card)
     launches.update(check_variants(results, card))
     slice_syncs = check_slice(cfg, dframes[:N_SHORT], poses, card)
     step_launches, per_frame, step_syncs = check_step(cfg, ext, dframes, poses, card, slice_syncs)
@@ -329,6 +340,13 @@ def capture_calls(state, dframes, ext, cfg, keep):
         stack.enter_context(mock.patch.object(
             image_ops, "gather_patches_pair",
             recorder(("gather", "KLT"), patch_gather.gather_patches_pair)))
+        gather = laser_mapping._gather_submap
+
+        def rebuild(*args, **kw):   # the frames on which MO rebuilt its submap cache
+            calls["rebuilds"].append(frame[0])
+            return gather(*args, **kw)
+
+        stack.enter_context(mock.patch.object(laser_mapping, "_gather_submap", rebuild))
         for i, (img, g, m, bk, lf) in enumerate(dframes):
             frame[0] = i
             state, _ = vloam_step(state, img, g, m, ext, cfg, pre_gridded=True, pre_buckets=bk,
@@ -356,17 +374,20 @@ def check_kernels(cfg, ext, dframes, card):
     function on the same inputs, None where there is none."""
     from vloam_tpu_torch.models.vloam import init_vloam_state
     from vloam_tpu_torch.ops import fused_gn, fused_knn, knn, patch_gather
+    from vloam_tpu_torch.tools import knn_check
+    from vloam_tpu_torch.tools.gather_experiments import graph_ms
 
-    last = N_WARMUP - 1
+    last = KERNEL_FRAME
     print(f"== phase 3: kernels vs plain PyTorch versions, at the frame step's call shapes "
-          f"(a {N_WARMUP}-frame warm-up drive of the full step; frame 1 and frame {last}) [{card}]")
+          f"(a {N_WARMUP}-frame warm-up drive of the full step; frames 1, {last} and "
+          f"{REBUILT_FRAME}) [{card}]")
     state, calls = capture_calls(init_vloam_state(cfg, dframes[0][0].device), dframes[:N_WARMUP],
-                                 ext, cfg, keep={1, last})
+                                 ext, cfg, keep={1, last, REBUILT_FRAME})
     del state
     results = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
                    "library_ms": None} for k in (*KERNELS, *GATHER_FORMS)}
 
-    def timed(name, label, kernel, plain, ops, nbytes, library=None):
+    def timed(name, label, kernel, plain, ops, nbytes, library=None, graph=False):
         ms, plain_ms = time_ms(kernel), time_ms(plain)
         ops_ms, bytes_ms = ops / PEAK_F32 * 1e3, nbytes / PEAK_BW * 1e3
         r = results[name]
@@ -374,7 +395,12 @@ def check_kernels(cfg, ext, dframes, card):
         r["plain_ms"] += plain_ms
         r["ops_ms"] += ops_ms
         r["bytes_ms"] += bytes_ms
-        print(f"  {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        device = ""
+        if graph:   # the wrapper's device work alone: no Python and no launch path
+            device_ms = graph_ms(kernel)
+            r["device_ms"] = r.get("device_ms", 0.0) + device_ms
+            device = f" ({device_ms:.4f} ms a call inside a replayed CUDA graph of 20 calls)"
+        print(f"  {name} {label}: kernel {ms:.4f} ms{device}, plain {plain_ms:.4f} ms "
               f"(median of {TIMING_RUNS}); bound {max(ops_ms, bytes_ms):.5f} ms "
               f"({ops / 1e6:.2f} MFLOP -> {ops_ms:.5f} ms, {nbytes / 1e6:.3f} MB -> "
               f"{bytes_ms:.5f} ms) [{card}]")
@@ -396,25 +422,77 @@ def check_kernels(cfg, ext, dframes, card):
         args, kw = calls[(last, "knn", site)][0]
         qa, ca, ma, ka, qb, cb, mb, kb = args
         ac, bc = kw.get("a_counts", (None, None)), kw.get("b_counts", (None, None))
+        radius = kw.get("prune_radius", (None, None))
+        assert (site == "MO") == (radius[0] is not None and radius[1] is not None), \
+            f"{site}: prune_radius {radius}"
         got = fused_knn.knn_pair(*args, **kw)
         ref = fused_knn.knn_pair_reference(*args, **kw)
         torch.cuda.synchronize()
         work = []
-        for g_, r_, q, c, m, k, cnt in ((got[0], ref[0], qa, ca, ma, ka, ac),
-                                        (got[1], ref[1], qb, cb, mb, kb, bc)):
-            shape = f"{site} {q.shape[0]}x{c.shape[0]} k={k}"
+        for g_, r_, q, c, m, k, cnt, r in ((got[0], ref[0], qa, ca, ma, ka, ac, radius[0]),
+                                           (got[1], ref[1], qb, cb, mb, kb, bc, radius[1])):
+            shape = f"{site} {q.shape[0]}x{c.shape[0]} k={k}" + (f" r={r:.3f}" if r else "")
             results["knn_pair"]["err"] = max(results["knn_pair"]["err"],
                                              knn_compare(f"knn_pair {shape}", g_, r_))
+            knn_check.assert_bit_equal(f"knn_pair {shape}", g_, r_)
             work.append(knn_work(q, c, m, k, *cnt))
             cdist_topk(shape, q, c, k)
         pair_ms[site] = timed("knn_pair", f"{site} pair", lambda: fused_knn.knn_pair(*args, **kw),
                               lambda: fused_knn.knn_pair_reference(*args, **kw),
-                              work[0][0] + work[1][0], work[0][1] + work[1][1])
+                              work[0][0] + work[1][0], work[0][1] + work[1][1], graph=True)
+        share, steps = knn_check.skipped_share(args, kw)
+        blocks = [knn.knn_plan(q.shape[0], c.shape[0], pruned=r is not None)[0]
+                  * -(-q.shape[0] // knn.TILE_Q) for q, c, r in ((qa, ca, radius[0]),
+                                                                 (qb, cb, radius[1]))]
+        assert sum(blocks) >= torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"  knn_pair {site} pair: bit-equal to the plain version (d2 and idx); sweep blocks "
+              f"{blocks[0]} + {blocks[1]}; (query tile, candidate tile) steps swept / skipped "
+              f"{steps[0]} / {steps[1]} and {steps[2]} / {steps[3]}: {share * 100:.1f} % skipped")
+        if site == "MO":
+            # the same call without the radius: the rule is the unpruned result clamped
+            free_kw = {k: v for k, v in kw.items() if k != "prune_radius"}
+            free = fused_knn.knn_pair(*args, **free_kw)
+            for g_, f_, r, name in ((got[0], free[0], radius[0], "corner"),
+                                    (got[1], free[1], radius[1], "surf")):
+                knn_check.assert_bit_equal(f"knn_pair MO {name}, pruned vs clamped unpruned",
+                                           g_, knn.clamp_radius(*f_, r))
+                inside = f_[0] <= knn.radius_sq(r)
+                print(f"  knn_pair MO {name}: equal to the unpruned launch in the "
+                      f"{int(inside.sum())} of {inside.numel()} slots with d2 <= r^2, +inf / 0 in "
+                      f"the others")
+            ms = time_ms(lambda: fused_knn.knn_pair(*args, **free_kw))
+            dev_ms = graph_ms(lambda: fused_knn.knn_pair(*args, **free_kw))
+            print(f"  knn_pair MO pair without the radius: kernel {ms:.4f} ms ({dev_ms:.4f} ms a "
+                  f"call inside a replayed CUDA graph) [{card}]")
+
+    # MO's call once the cache has been rebuilt in Morton order: what the radius skips then
+    args, kw = calls[(REBUILT_FRAME, "knn", "MO")][0]
+    rebuilds = calls["rebuilds"]
+    assert any(0 < f <= REBUILT_FRAME for f in rebuilds), \
+        f"no cache rebuild after frame 0: {rebuilds}"
+    got = fused_knn.knn_pair(*args, **kw)
+    ref = fused_knn.knn_pair_reference(*args, **kw)
+    for grp, name in enumerate(("corner", "surf")):
+        knn_check.assert_bit_equal(f"knn_pair MO {name}, frame {REBUILT_FRAME}", got[grp], ref[grp])
+    share, steps = knn_check.skipped_share(args, kw)
+    free_kw = {k: v for k, v in kw.items() if k != "prune_radius"}
+    times = [f(lambda: fused_knn.knn_pair(*args, **k_)) for k_ in (kw, free_kw)
+             for f in (time_ms, graph_ms)]
+    print(f"  knn_pair MO pair at frame {REBUILT_FRAME} (cache rebuilt on frames {rebuilds}; live "
+          f"{int(kw['a_counts'][0])} / {int(kw['b_counts'][0])} queries, "
+          f"{int(kw['a_counts'][1])} / {int(kw['b_counts'][1])} candidates): bit-equal to the plain version; steps swept / "
+          f"skipped {steps[0]} / {steps[1]} and {steps[2]} / {steps[3]}: {share * 100:.1f} % "
+          f"skipped; kernel {times[0]:.4f} ms ({times[1]:.4f} ms inside a replayed CUDA graph), "
+          f"without the radius {times[2]:.4f} ms ({times[3]:.4f} ms) [{card}]")
+
+    for case in knn_check.cases():
+        knn_check.check_case(case, qa.device)
+        print(f"  knn_pair / knn, {case['name']}: bit-equal to the plain version (d2 and idx)")
 
     # the single-problem kernel on each group of the MO call
     args, kw = calls[(last, "knn", "MO")][0]
     qa, ca, ma, ka, qb, cb, mb, kb = args
-    pair = fused_knn.knn_pair(*args, **kw)
+    pair = fused_knn.knn_pair(*args, a_counts=kw["a_counts"], b_counts=kw["b_counts"])
     single_ms = 0.0
     for grp, (q, c, m, k, cnt) in enumerate(((qa, ca, ma, ka, kw["a_counts"]),
                                              (qb, cb, mb, kb, kw["b_counts"]))):
@@ -423,19 +501,24 @@ def check_kernels(cfg, ext, dframes, card):
         ref = lambda: knn.knn_reference(q, c, m, k, cand_count=cnt[1], query_count=cnt[0])  # noqa: E731
         got = one()
         torch.cuda.synchronize()
-        results["knn"]["err"] = max(results["knn"]["err"], knn_compare(f"knn {shape}", got, ref()))
+        want = ref()
+        results["knn"]["err"] = max(results["knn"]["err"], knn_compare(f"knn {shape}", got, want))
+        knn_check.assert_bit_equal(f"knn {shape}", got, want)
         assert torch.equal(got[0], pair[grp][0]) and torch.equal(got[1], pair[grp][1]), \
             f"knn {shape}: differs from the same group of one knn_pair launch"
         d1, i1 = knn.nn1(q, c, m, cand_count=cnt[1], query_count=cnt[0])
         assert torch.equal(d1, got[0][:, 0]) and torch.equal(i1, got[1][:, 0]), \
             f"nn1 {shape}: differs from column 0 of k={k}"
-        print(f"  knn {shape}: bit-equal to its knn_pair group; nn1 equals column 0")
-        single_ms += timed("knn", shape, one, ref, *knn_work(q, c, m, k, cnt[0], cnt[1]))
+        print(f"  knn {shape}: bit-equal to its knn_pair group (no radius); nn1 equals column 0")
+        single_ms += timed("knn", shape, one, ref, *knn_work(q, c, m, k, cnt[0], cnt[1]),
+                           graph=True)
     print(f"  knn, both MO groups one after the other {single_ms:.4f} ms; the same two problems in "
-          f"one knn_pair launch {pair_ms['MO']:.4f} ms [{card}]")
+          f"one knn_pair launch with the radius {pair_ms['MO']:.4f} ms [{card}]")
     q, c, m = qb[:1024].contiguous(), cb[:8192].contiguous(), mb[:8192].contiguous()
+    got, want = knn.knn(q, c, m, 32), knn.knn_reference(q, c, m, 32)
     results["knn"]["err"] = max(results["knn"]["err"], knn_compare(
-        "knn 1024x8192 k=32 (run-time k)", knn.knn(q, c, m, 32), knn.knn_reference(q, c, m, 32)))
+        "knn 1024x8192 k=32 (run-time k)", got, want))
+    knn_check.assert_bit_equal("knn 1024x8192 k=32 (run-time k)", got, want)
 
     gn_args, _ = calls[(last, "gn", "MO")][0]
     check_correspondences(cfg, args, kw, gn_args)
@@ -452,7 +535,7 @@ def check_kernels(cfg, ext, dframes, card):
         timed("gn_lidar", shape, lambda: fused_gn.solve_pose_gn_lidar(*args),
               lambda: fused_gn.solve_pose_gn_lidar_reference(*args),
               GN_LIDAR_OPS * (int(v_e.sum()) + int(v_s.sum())) * iters,
-              4 * (10 * be + 8 * bs + 14))
+              4 * (10 * be + 8 * bs + 14), graph=True)
 
     args, _ = calls[(last, "gn_vo", "VO")][0]
     n32, n22, m_vo = int(args[4].sum()), int(args[5].sum()), args[1].shape[0]
@@ -461,7 +544,7 @@ def check_kernels(cfg, ext, dframes, card):
                                          fused_gn.solve_pose_gn_vo_reference(*args))
     timed("gn_vo", shape, lambda: fused_gn.solve_pose_gn_vo(*args),
           lambda: fused_gn.solve_pose_gn_vo_reference(*args),
-          GN_VO_OPS * (n32 + n22) * args[6], 4 * (9 * m_vo + 14))
+          GN_VO_OPS * (n32 + n22) * args[6], 4 * (9 * m_vo + 14), graph=True)
 
     gathers = calls[(1, "gather", "KLT")]
     assert len(gathers) == 3, f"frame 1 made {len(gathers)} patch gathers, want 3"
@@ -644,10 +727,15 @@ def check_correspondences(cfg, knn_args, knn_kw, gn_args):
         got = fn(pose, stack, smask, cand, cmask, cfg, cand_count=cnt[1], query_count=cnt[0])
         torch.cuda.synchronize()
         assert torch.equal(got[3], want[3]), f"{name}: valid mask differs from the fused path's"
-        for i in (0, 1, 2):
-            assert torch.equal(got[i], want[i]), f"{name}: output {i} differs from the fused path's"
-        print(f"  {name}: {int(got[3].sum())} valid of {int(smask.sum())} live queries; points, "
-              f"fits and valid mask bit-equal to the fused path's")
+        assert torch.equal(got[0], want[0]), f"{name}: points differ from the fused path's"
+        # the fused path searches under the radius: a neighbour beyond it is
+        # index 0 there, which no valid fit reads (the gate lies inside the radius)
+        ok = want[3]
+        for i in (1, 2):
+            assert torch.equal(got[i][ok], want[i][ok]), \
+                f"{name}: output {i} differs from the fused path's on a valid row"
+        print(f"  {name}: {int(got[3].sum())} valid of {int(smask.sum())} live queries; points and "
+              f"valid mask bit-equal to the fused path's, fits bit-equal on every valid row")
 
 
 def check_single_association(cfg, calls, card):
@@ -659,7 +747,7 @@ def check_single_association(cfg, calls, card):
     from vloam_tpu_torch.models import laser_mapping as lm
     from vloam_tpu_torch.ops import fused_gn, fused_knn, knn
 
-    last = N_WARMUP - 1
+    last = KERNEL_FRAME
     print(f"== phase 3b: single-problem map association path (MO of frame {last}) [{card}]")
     (knn_args, knn_kw), (gn_args, _) = calls[(last, "knn", "MO")][0], calls[(last, "gn", "MO")][0]
     pose0, corner, surf = association_inputs(knn_args, knn_kw, gn_args)

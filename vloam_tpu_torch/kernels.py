@@ -39,11 +39,17 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# one k-NN problem up to its k: (q, q_stride, c, c_stride, mask, q_count, q_count_host,
+# c_count, c_count_host, m, n, k)
+_KNN_PROBLEM = [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I]
 _SIGNATURES = {
-    "vloam_knn_pair": (
-        [_P, _P, _P, _P, _I, _I, _I, _P, _P] * 2 + [_P, _P]
-    ),
-    "vloam_knn": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # per problem (..., splits, pilot_step, pilot_splits, r2, d2, idx),
+    # then (scratch, stats, stream)
+    "vloam_knn_pair": (_KNN_PROBLEM + [_I, _I, _I, _F, _P, _P]) * 2 + [_P, _P, _P],
+    # (..., splits, pilot_step, pilot_splits, d2, idx, scratch, stream)
+    "vloam_knn": _KNN_PROBLEM + [_I, _I, _I, _P, _P, _P, _P],
+    # (m, n, k, splits, pilot_step, pilot_splits) -> bytes, not an error code
+    "vloam_knn_scratch_bytes": [_I, _I, _I, _I, _I, _I],
     "vloam_gn_lidar": [_P, _P, _I, _P, _I, _I, _F, _F, _P, _P],
     "vloam_gn_vo": [_P, _P, _I, _I, _F, _F, _P, _P],
     "vloam_gather_patches": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],

@@ -10,6 +10,15 @@ outer iterations of fused 5-NN + line/plane fits + fused GN, update the
 wmap_wodom correction, and insert the registered points whose nearest map
 point is farther than half a voxel.
 
+The rebuilt submap cache is put into Morton order (on every device, as the
+reference does on its accelerator), the 5-NN search sees the feature stacks
+through a Morton-order permutation, and it is clamped to the radius every
+consumer of its distances gates below: rows that lie together in space make
+the k-NN kernel's tile boxes small, and it skips the tile pairs farther
+apart than the radius.  The stacks themselves keep their scan order (the
+reference sorts them in place): the order decides which points a full cube
+drops, so sorting them would change the map wherever a cube overflows.
+
 In place: the cube array (~477 MB at kitti_hdl64) is scattered into in
 place every frame and never copied; the small count and coordinate arrays
 and the submap caches are rebuilt out of place.
@@ -26,11 +35,13 @@ from vloam_tpu_torch import geometry as geo
 from vloam_tpu_torch.config import VloamConfig
 from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_lidar
 from vloam_tpu_torch.ops.fused_knn import knn_pair
-from vloam_tpu_torch.ops.knn import compact_rows, knn
+from vloam_tpu_torch.ops.knn import compact_rows, knn, morton_order, morton_sort
 from vloam_tpu_torch.ops.linalg3 import eigh3x3_sym, solve3x3_sym
 from vloam_tpu_torch.ops.voxel import div_exact, voxel_downsample
 
 INT32_MIN = -(2**31)
+STACK_MORTON_CELL = 2.0    # m, feature stacks (sensor frame)
+SUBMAP_MORTON_CELL = 4.0   # m, submap cache (world frame, about the window centre)
 
 
 class MapState(NamedTuple):
@@ -293,6 +304,11 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
 
     if bool(torch.any(center != state.sub_center)):          # sync
         (c_pts, cm), (s_pts, sm), _, _ = _gather_submap(state, coords, cfg)
+        # the tail appended frame by frame lies near the current pose and
+        # needs no re-sort
+        org = (center.to(torch.float32) * mc.cube_size)[None, :]
+        c_pts, cm = morton_sort(c_pts, cm, SUBMAP_MORTON_CELL, org)
+        s_pts, sm = morton_sort(s_pts, sm, SUBMAP_MORTON_CELL, org)
         c_n, s_n = cm.sum(), sm.sum()
     else:
         c_pts, c_n, s_pts, s_n = state.sub_c, state.sub_c_n, state.sub_s, state.sub_s_n
@@ -301,15 +317,27 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
 
     cs_n, ss_n = cs_mask.sum(), ss_mask.sum()
     if bool((c_n > mc.min_map_corner) & (s_n > mc.min_map_surf)):  # sync
+        # The search radius covers both consumers of these distances: the
+        # fits gate at neighbor_dist_sq, the insert gate below at r_dedup^2.
+        r_dedup = mc.insert_dedup_factor * max(mc.line_resolution, mc.plane_resolution)
+        r_prune = max(float(mc.neighbor_dist_sq) ** 0.5, r_dedup) * 1.001
+        # The search takes the stacks in Morton order (ring/azimuth order
+        # sweeps the whole scan, so a tile of rows would span the scene; a
+        # rigid transform keeps Morton-ordered tiles compact) and its results
+        # go back to stack order.
+        order_c = morton_order(corner_stack, cs_mask, STACK_MORTON_CELL)
+        order_s = morton_order(surf_stack, ss_mask, STACK_MORTON_CELL)
+        sorted_c, sorted_s = corner_stack[order_c, :3], surf_stack[order_s, :3]
+        back_c, back_s = torch.argsort(order_c), torch.argsort(order_s)
         pose = pose0
         for _ in range(mc.outer_iters):
-            qc = geo.pose_apply(pose, corner_stack[:, :3])
-            qs = geo.pose_apply(pose, surf_stack[:, :3])
             (d2c, idxc), (d2s, idxs) = knn_pair(
-                qc, c_pts[:, :3], c_mask, mc.n_neighbors,
-                qs, s_pts[:, :3], s_mask, mc.n_neighbors,
+                geo.pose_apply(pose, sorted_c), c_pts[:, :3], c_mask, mc.n_neighbors,
+                geo.pose_apply(pose, sorted_s), s_pts[:, :3], s_mask, mc.n_neighbors,
                 a_counts=(cs_n, c_n), b_counts=(ss_n, s_n),
+                prune_radius=(r_prune, r_prune),
             )
+            d2c, idxc, d2s, idxs = d2c[back_c], idxc[back_c], d2s[back_s], idxs[back_s]
             p_e, a_e, b_e, v_e = fit_corner_lines(corner_stack, cs_mask, c_pts[idxc, :3], d2c, cfg)
             p_s, n_s, d_s, v_s = fit_surf_planes(surf_stack, ss_mask, s_pts[idxs, :3], d2s, cfg)
             pose = solve_pose_gn_lidar(

@@ -22,17 +22,48 @@ ways:
 
 The search is exact (the TPU kernel keeps one neighbour per lane class) and
 ties go to the lower candidate index.
+
+``knn_pair`` also takes a search radius per problem (the reference's
+``prune_radius``).  The reference leaves open whether a neighbour beyond the
+radius is reported; here the rule is fixed (``clamp_radius``): every slot
+whose d2 exceeds ``float32(r) ** 2`` is +inf with index 0, whatever the
+kernel skipped and whatever the row order.  ``morton_sort`` gives the row
+order that makes the kernel's box pruning pay.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from vloam_tpu_torch import kernels
+from vloam_tpu_torch.ops.voxel import div_exact
 
-LAUNCHES = 0  # kernel launches by knn / nn1 (plain-version calls do not count)
+LAUNCHES = 0  # wrapper calls of knn / nn1 that launched (plain-version calls do not count)
 
 MAX_K = 128  # the range of the kernel it replaces (knn_lanemin)
+REG_K = (1, 5, 8, 16)  # the k with a register list and a split sweep in knn.cu
+
+# How many candidate splits a sweep gets (csrc/knn_common.cuh).  Without a
+# radius: enough (query tile, split) blocks to fill the card's 132 SMs four
+# times over, but no more than MAX_SPLITS, since every split warms up a list
+# of its own and the merge reads them all.  With a radius most blocks return
+# at once and the work sits where the surviving tiles lie, so the splits are
+# as fine as MIN_SPLIT_ROWS allows.
+TILE_Q = 256            # kTileQ: queries per sweep block
+TARGET_BLOCKS = 4 * 132
+MIN_SPLIT_ROWS = 512    # two candidate tiles
+MAX_SPLITS = 32
+MAX_SPLITS_PRUNED = 128
+# A search without a radius over PILOT_MIN_ROWS candidates or more first runs
+# a pilot over every PILOT_STEP-th row, which bounds each query's k-th
+# distance from above: the sweep's lists then start out rejecting all but
+# about k * ln(k) * PILOT_STEP candidates instead of warming up from +inf in
+# every split.  (On the frame step's LO call, H100: 0.21 ms without it, 0.20, 0.19,
+# 0.17 and 0.16 ms with steps 16, 8, 4 and 2; the pilot itself costs 1 / step
+# of the sweep's distances.)
+PILOT_STEP = 4
+PILOT_MIN_ROWS = 4096
 
 _INF = 3.4e38  # masked_argmin sentinel (finite, as in the reference)
 _INF_KEY = 0x7F800000 << 32  # sort key of d2 = +inf (f32 bits of inf, index 0)
@@ -52,6 +83,107 @@ def as_count(count, total: int, device) -> torch.Tensor:
     if count is None:
         return torch.full((), total, dtype=torch.int64, device=device)
     return torch.as_tensor(count, device=device).to(torch.int64).clamp(0, total)
+
+
+def knn_splits(m: int, n: int, pruned: bool = False) -> int:
+    """Candidate splits of an (m queries, n candidates) sweep."""
+    by_rows = max(1, n // MIN_SPLIT_ROWS)
+    if pruned:
+        return min(MAX_SPLITS_PRUNED, by_rows)
+    q_tiles = max(-(-m // TILE_Q), 1)
+    return min(MAX_SPLITS, -(-TARGET_BLOCKS // q_tiles), by_rows)
+
+
+def knn_plan(m: int, n: int, pruned: bool = False) -> tuple[int, int, int]:
+    """(candidate splits, the pilot's row step or 0, the pilot's splits)."""
+    splits = knn_splits(m, n, pruned)
+    if pruned or n < PILOT_MIN_ROWS:
+        return splits, 0, 0
+    return splits, PILOT_STEP, knn_splits(m, -(-n // PILOT_STEP))
+
+
+def count_arg(count, total: int, device):
+    """A valid-prefix length as the kernels take it: (device int64 tensor or
+    None, host int used when the tensor is None).  The kernels clamp."""
+    if count is None:
+        return None, total
+    if isinstance(count, torch.Tensor):
+        return count.to(device=device, dtype=torch.int64), 0
+    return None, min(max(int(count), 0), total)
+
+
+def problem_args(query, cand, mask, k: int, query_count, cand_count):
+    """One problem as the C entries take it.  Returns (the leading arguments
+    (q, q_stride, c, c_stride, mask, q_count, q_count_host, c_count,
+    c_count_host, m, n, k), the tensors they point into).  The caller holds
+    on to the tensors until its launches are enqueued."""
+    dev = query.device
+    m, n = query.shape[0], cand.shape[0]
+    (query, q_stride), (cand, c_stride), mask = rows_arg(query), rows_arg(cand), mask.contiguous()
+    q_n, q_host = count_arg(query_count, m, dev)
+    c_n, c_host = count_arg(cand_count, n, dev)
+    args = (query.data_ptr(), q_stride, cand.data_ptr(), c_stride, mask.data_ptr(),
+            None if q_n is None else q_n.data_ptr(), q_host,
+            None if c_n is None else c_n.data_ptr(), c_host, m, n, k)
+    return args, (query, cand, mask, q_n, c_n)
+
+
+def rows_arg(x: torch.Tensor):
+    """(M, 3) points as the kernels read them: (float32 tensor with unit
+    column stride, floats between rows).  A column slice of a wider buffer
+    passes as it is."""
+    x = x.to(torch.float32)
+    if x.stride(1) != 1 or x.stride(0) < 3:
+        x = x.contiguous()
+    return x, x.stride(0)
+
+
+def radius_sq(r: float) -> float:
+    """float32(r) ** 2, the bound a search radius puts on d2."""
+    return float(np.float32(r) * np.float32(r))
+
+
+def clamp_radius(d2: torch.Tensor, idx: torch.Tensor, r):
+    """The radius rule: slots with d2 > float32(r)^2 become +inf, index 0."""
+    if r is None:
+        return d2, idx
+    far = d2 > radius_sq(r)
+    return torch.where(far, torch.inf, d2), torch.where(far, 0, idx)
+
+
+def _part1by2(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of v so they occupy every third bit."""
+    v = v & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def morton_keys(pts: torch.Tensor, cell: float, origin=0.0) -> torch.Tensor:
+    """(N, 3+) -> (N,) int32 Morton (Z-order) keys at ``cell`` resolution.
+    Coordinates are binned relative to ``origin`` with a +512-cell offset and
+    clipped to 10 bits an axis; far outliers collapse onto the boundary
+    cells, which costs pruning efficiency, never correctness."""
+    g = torch.floor(div_exact(pts[:, :3] - origin, cell)).to(torch.int32) + 512
+    g = torch.clamp(g, 0, 1023)
+    return _part1by2(g[:, 0]) | (_part1by2(g[:, 1]) << 1) | (_part1by2(g[:, 2]) << 2)
+
+
+def morton_order(pts: torch.Tensor, mask: torch.Tensor, cell: float, origin=0.0) -> torch.Tensor:
+    """The permutation that puts a point buffer into Morton order: a stable
+    sort of the keys, invalid rows last (a prefix mask stays a prefix mask)."""
+    key = torch.where(mask, morton_keys(pts, cell, origin), 2**31 - 1)
+    return torch.sort(key, stable=True).indices
+
+
+def morton_sort(pts: torch.Tensor, mask: torch.Tensor, cell: float, origin=0.0):
+    """Sort a point buffer into Morton order: consecutive rows become
+    spatial neighbours, so a tile of rows has a small bounding box.
+    Returns (points, mask)."""
+    order = morton_order(pts, mask, cell, origin)
+    return pts[order], mask[order]
 
 
 def knn_reference(
@@ -115,8 +247,6 @@ def knn(
         raise ValueError(f"knn: k = {k} outside [1, {MAX_K}]")
     if query.device.type == "cpu":
         return knn_reference(query, cand, cand_mask, k, cand_count, query_count)
-    query, cand = query.to(torch.float32).contiguous(), cand.to(torch.float32).contiguous()
-    cand_mask = cand_mask.contiguous()
     kernels.require_cuda("knn", query, cand, cand_mask)
     if cand_mask.dtype != torch.bool:
         raise ValueError("knn: the mask must be bool")
@@ -125,14 +255,16 @@ def knn(
                          f"{tuple(cand_mask.shape)}; want (M, 3), (N, 3), (N,)")
     dev = query.device
     m, n = query.shape[0], cand.shape[0]
-    cen = center_of(cand, cand_mask).contiguous()
-    counts = torch.stack([as_count(query_count, m, dev), as_count(cand_count, n, dev)]
-                         ).to(torch.int32)
+    args, alive = problem_args(query, cand, cand_mask, k, query_count, cand_count)
+    plan = knn_plan(m, n) if k in REG_K else (1, 0, 0)
+    lib = kernels.lib()
+    scratch = torch.empty((lib.vloam_knn_scratch_bytes(m, n, k, *plan),), dtype=torch.uint8,
+                          device=dev)
     d2 = torch.empty((m, k), dtype=torch.float32, device=dev)
     idx = torch.empty((m, k), dtype=torch.int64, device=dev)
-    rc = kernels.lib().vloam_knn(
-        query.data_ptr(), cand.data_ptr(), cand_mask.data_ptr(), cen.data_ptr(), m, n, k,
-        d2.data_ptr(), idx.data_ptr(), counts.data_ptr(), kernels.stream_ptr(dev))
+    rc = lib.vloam_knn(*args, *plan, d2.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+                       kernels.stream_ptr(dev))
+    del alive   # the inputs as the kernels read them, held until here
     kernels.check(rc, "knn")
     LAUNCHES += 1
     return d2, idx
