@@ -54,8 +54,10 @@ Phases, each printed on its own lines:
    (``optical_flow_match=False``, ORB descriptors on the single-image patch
    gather, brute-force Hamming matching), 12 frames.
 
-Then one JSON line of per-kernel results, the card's name and power limit,
-and last the line ``{"ok": true, "device": {...}}``.  Any failure raises
+Then the device kernels one Gauss-Newton wrapper call runs (torch.profiler,
+after every timed phase: once it has run, launches cost more on the host),
+one JSON line of per-kernel results, the card's name and power limit, and
+last the line ``{"ok": true, "device": {...}}``.  Any failure raises
 and exits nonzero before that line; so does a machine without CUDA.
 """
 
@@ -269,6 +271,8 @@ def main() -> int:
 
     results, calls = check_kernels(cfg, ext, dframes, card)
     launches = {"knn": check_single_association(cfg, calls, card)}
+    gn_sites = {site: calls[(KERNEL_FRAME, kind, site)][0][0]
+                for site, kind in (("LO", "gn"), ("MO", "gn"), ("VO", "gn_vo"))}
     del calls
     launches["gather_patches_stack"] = check_stack_path(cfg, dframes[KERNEL_FRAME][0], card)
     launches.update(check_variants(results, card))
@@ -285,6 +289,7 @@ def main() -> int:
     launches["gather_patches_single"] = check_descriptor_mode(cfg, ext, dframes, poses, card,
                                                               step_syncs)
     del dframes
+    count_gn_kernels(gn_sites, card)
 
     def entry(name, **kw):
         assert launches[name] > 0, f"{name}: not launched on its path"
@@ -373,7 +378,7 @@ def check_kernels(cfg, ext, dframes, card):
     ``library_ms`` is the time of the one PyTorch call that computes the same
     function on the same inputs, None where there is none."""
     from vloam_tpu_torch.models.vloam import init_vloam_state
-    from vloam_tpu_torch.ops import fused_gn, fused_knn, knn, patch_gather
+    from vloam_tpu_torch.ops import fused_knn, knn, patch_gather
     from vloam_tpu_torch.tools import knn_check
     from vloam_tpu_torch.tools.gather_experiments import graph_ms
 
@@ -523,28 +528,7 @@ def check_kernels(cfg, ext, dframes, card):
     gn_args, _ = calls[(last, "gn", "MO")][0]
     check_correspondences(cfg, args, kw, gn_args)
 
-    for site in ("LO", "MO"):
-        args, _ = calls[(last, "gn", site)][0]
-        (_, _, _, v_e), (_, _, _, v_s), iters = args[1], args[2], args[3]
-        be, bs = v_e.shape[0], v_s.shape[0]
-        shape = f"{site} Be={be} Bs={bs}"
-        err = gn_compare(f"gn_lidar {shape}", fused_gn.solve_pose_gn_lidar(*args),
-                         fused_gn.solve_pose_gn_lidar_reference(*args))
-        results["gn_lidar"]["err"] = max(results["gn_lidar"]["err"], err)
-        # rows: an edge is 10 floats, a plane 8 (csrc/gn_lidar.cu); pose in and out
-        timed("gn_lidar", shape, lambda: fused_gn.solve_pose_gn_lidar(*args),
-              lambda: fused_gn.solve_pose_gn_lidar_reference(*args),
-              GN_LIDAR_OPS * (int(v_e.sum()) + int(v_s.sum())) * iters,
-              4 * (10 * be + 8 * bs + 14), graph=True)
-
-    args, _ = calls[(last, "gn_vo", "VO")][0]
-    n32, n22, m_vo = int(args[4].sum()), int(args[5].sum()), args[1].shape[0]
-    shape = f"VO M={m_vo} (3D-2D {n32}, 2D-2D {n22}), {args[6]} iterations"
-    results["gn_vo"]["err"] = gn_compare(f"gn_vo {shape}", fused_gn.solve_pose_gn_vo(*args),
-                                         fused_gn.solve_pose_gn_vo_reference(*args))
-    timed("gn_vo", shape, lambda: fused_gn.solve_pose_gn_vo(*args),
-          lambda: fused_gn.solve_pose_gn_vo_reference(*args),
-          GN_VO_OPS * (n32 + n22) * args[6], 4 * (9 * m_vo + 14), graph=True)
+    check_gn(calls, timed, results, card)
 
     gathers = calls[(1, "gather", "KLT")]
     assert len(gathers) == 3, f"frame 1 made {len(gathers)} patch gathers, want 3"
@@ -573,6 +557,66 @@ def check_kernels(cfg, ext, dframes, card):
           "no single PyTorch call computes a masked k-NN with dynamic counts, a fused "
           "Gauss-Newton solve, or windows of two separate images")
     return results, calls
+
+
+def check_gn(calls, timed, results, card):
+    """Phase 3, the Gauss-Newton kernels B3 and B4 (``tools/gn_check``):
+    every solve of frames 1, 15 and 35 and the problems of ``gn_check.cases``
+    against the plain version within ``gn_check``'s tolerance; at frame 15's
+    first LO, MO and VO solve the wrapper's time and the plain version's, the
+    wrapper's, the launch alone's and the chain floor's device time inside a
+    replayed CUDA graph (the device kernels of a call are counted last,
+    ``count_gn_kernels``)."""
+    from vloam_tpu_torch.tools import gn_check
+
+    last = KERNEL_FRAME
+    for frame in (1, last, REBUILT_FRAME):
+        for site, kind, name in (("LO", "gn", "lidar"), ("MO", "gn", "lidar"),
+                                 ("VO", "gn_vo", "vo")):
+            for n, (args, _) in enumerate(calls[(frame, kind, site)]):
+                err = gn_check.check(f"frame {frame} {site} solve {n}", name, args)
+                results[f"gn_{name}"]["err"] = max(results[f"gn_{name}"]["err"], err)
+    lidar_args, vo_args = calls[(last, "gn", "MO")][0][0], calls[(last, "gn_vo", "VO")][0][0]
+    for label, name, args, pose in gn_check.cases(lidar_args, vo_args):
+        err = gn_check.check(f"MO/VO of frame {last}, {label}", name, args, pose)
+        results[f"gn_{name}"]["err"] = max(results[f"gn_{name}"]["err"], err)
+
+    for site in ("LO", "MO", "VO"):
+        if site == "VO":
+            kind, args = "vo", vo_args
+            n32, n22, m, iters = int(args[4].sum()), int(args[5].sum()), args[1].shape[0], args[6]
+            label = f"VO M={m} (3D-2D {n32}, 2D-2D {n22}), {iters} iterations"
+            # a match: X0 12 bytes, xb0 and xb1 8 each, two mask bytes; the pose in and out
+            ops, nbytes = GN_VO_OPS * (n32 + n22) * iters, 30 * m + 56
+        else:
+            kind, args = "lidar", calls[(last, "gn", site)][0][0]
+            (_, _, _, v_e), (_, _, _, v_s), iters = args[1], args[2], args[3]
+            be, bs, live = v_e.shape[0], v_s.shape[0], int(v_e.sum()) + int(v_s.sum())
+            label = f"{site} Be={be} Bs={bs} ({live} live)"
+            # an edge: p, a, b 36 bytes and its mask byte; a plane: p, n, d 28 and its
+            # mask byte; the pose in and out 28 bytes each
+            ops, nbytes = GN_LIDAR_OPS * live * iters, 37 * be + 29 * bs + 56
+        kernel, plain = gn_check.SOLVES[kind]
+        timed(f"gn_{kind}", label, lambda: kernel(*args), lambda: plain(*args), ops, nbytes,
+              graph=True)
+        print(f"  {gn_check.launch_line(f'gn_{kind} {label}', kind, args, card)}")
+
+
+def count_gn_kernels(sites, card):
+    """The device kernels one GN wrapper call runs, by torch.profiler, on
+    frame 15's first LO, MO and VO solves: one each, or "not measured" where
+    the profiler shows no device event.  Run after every timed phase: once
+    the profiler has run, every launch in the process costs more on the host
+    (with it inside phase 3, phase 3c's launch-bound wrapper times rose
+    1.5-2x and every frame median after it)."""
+    from vloam_tpu_torch.tools import gn_check
+
+    print(f"== device kernels per GN wrapper call (torch.profiler) [{card}]")
+    for site, args in sites.items():
+        kind = "vo" if site == "VO" else "lidar"
+        line, names = gn_check.kernels_line(f"gn_{kind} {site}", kind, args, card)
+        print(f"  {line}")
+        assert names is None or len(names) == 1, line
 
 
 def orb_corners(img, cfg):

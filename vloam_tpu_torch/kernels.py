@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # one k-NN problem up to its k: (q, q_stride, c, c_stride, mask, q_count, q_count_host,
 # c_count, c_count_host, m, n, k)
@@ -50,8 +51,15 @@ _SIGNATURES = {
     "vloam_knn": _KNN_PROBLEM + [_I, _I, _I, _P, _P, _P, _P],
     # (m, n, k, splits, pilot_step, pilot_splits) -> bytes, not an error code
     "vloam_knn_scratch_bytes": [_I, _I, _I, _I, _I, _I],
-    "vloam_gn_lidar": [_P, _P, _I, _P, _I, _I, _F, _F, _P, _P],
-    "vloam_gn_vo": [_P, _P, _I, _I, _F, _F, _P, _P],
+    # (pose0, stride, then each of ep, ea, eb, ev: pointer and row stride, be; the
+    # same for pp, pn, pd, pv and bs; iters, huber_delta, lm_lambda, pose_out,
+    # stream)
+    "vloam_gn_lidar": [_P, _L] * 5 + [_I] + [_P, _L] * 4 + [_I, _I, _F, _F, _P, _P],
+    # (pose0, stride, then X0, xb0, xb1, has_depth, no_depth: pointer and row
+    # stride; m, iters, huber_delta, lm_lambda, pose_out, stream)
+    "vloam_gn_vo": [_P, _L] * 6 + [_I, _I, _F, _F, _P, _P],
+    "vloam_gn_lidar_setup": [],
+    "vloam_gn_vo_setup": [],
     "vloam_gather_patches": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "vloam_gather_patches_stack": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
     "vloam_whole_image": [_P, _I, _I, _P, _P],
@@ -132,6 +140,10 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        # kernel attributes (dynamic shared memory above 48 KB) are set once
+        # here, never inside a launch or a capture
+        for setup in ("vloam_gn_lidar_setup", "vloam_gn_vo_setup"):
+            check(getattr(handle, setup)(), setup)
         _lib = handle
     return _lib
 

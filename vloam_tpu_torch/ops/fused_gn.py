@@ -6,6 +6,12 @@ of its CUDA kernel for CUDA tensors (``csrc/gn_lidar.cu``, ``csrc/gn_vo.cu``)
 and its plain PyTorch version, the jacfwd solver over the same residuals
 (``solve_pose_gn_lidar_reference``, ``solve_pose_gn_vo_reference``), for CPU
 tensors.  Neither falls back from one to the other.
+
+The kernels read the factor arrays as the call sites make them: (B, 3) and
+(B, 2) float32 rows at any row stride (the points are (B, 4)[:, :3] views),
+(B,) arrays at any stride, bool masks as bytes.  ``lidar_layout`` and
+``vo_layout`` check that and return the row strides, so a wrapper issues no
+PyTorch operation before its launch but the output's ``torch.empty``.
 """
 
 from __future__ import annotations
@@ -18,6 +24,60 @@ from vloam_tpu_torch.ops.gauss_newton import solve_pose_gn
 
 LAUNCHES = 0     # kernel launches by solve_pose_gn_lidar (plain-version calls do not count)
 LAUNCHES_VO = 0  # kernel launches by solve_pose_gn_vo
+
+
+def _strides(name, specs):
+    """Row strides (elements) of the arrays in ``specs`` = ((label, tensor,
+    shape, dtype), ...), checked against what the kernel reads: one device,
+    the dtype, the shape, and unit stride along the last dim of a 2-D array.
+    Raises ValueError on anything else."""
+    dev = specs[0][1].device
+    strides = []
+    for label, t, shape, dtype in specs:   # one test per array; a message only on failure
+        st = t.stride()
+        if (t.device != dev or t.dtype != dtype or t.shape != shape
+                or (len(shape) == 2 and st[1] != 1 and t.numel())):
+            raise ValueError(f"{name}: {label} must be {dtype} of shape {shape} on {dev}, with "
+                             f"unit stride along its last dim; got {t.dtype} of shape "
+                             f"{tuple(t.shape)} on {t.device}, strides {st}")
+        strides.append(st[0])
+    return strides
+
+
+def lidar_layout(pose0, edge, plane):
+    """The lidar kernel's view of its arguments: (arrays, row strides, Be,
+    Bs), the arrays in its order pose0, ep, ea, eb, ev, pp, pn, pd, pv."""
+    ep, ea, eb, ev = edge
+    pp, pn, pd, pv = plane
+    be, bs = ep.shape[0], pp.shape[0]
+    f32, b8 = torch.float32, torch.bool
+    arrays = (pose0, ep, ea, eb, ev, pp, pn, pd, pv)
+    strides = _strides("solve_pose_gn_lidar", (
+        ("pose0", pose0, (7,), f32), ("edge p", ep, (be, 3), f32), ("edge a", ea, (be, 3), f32),
+        ("edge b", eb, (be, 3), f32), ("edge valid", ev, (be,), b8),
+        ("plane p", pp, (bs, 3), f32), ("plane n", pn, (bs, 3), f32),
+        ("plane d", pd, (bs,), f32), ("plane valid", pv, (bs,), b8)))
+    return arrays, strides, be, bs
+
+
+def vo_layout(pose0, X0, xb0, xb1, has_depth, no_depth):
+    """The VO kernel's view of its arguments: (arrays, row strides, M), the
+    arrays in its order pose0, X0, xb0, xb1, has_depth, no_depth."""
+    m = X0.shape[0]
+    f32, b8 = torch.float32, torch.bool
+    arrays = (pose0, X0, xb0, xb1, has_depth, no_depth)
+    strides = _strides("solve_pose_gn_vo", (
+        ("pose0", pose0, (7,), f32), ("X0", X0, (m, 3), f32), ("xb0", xb0, (m, 2), f32),
+        ("xb1", xb1, (m, 2), f32), ("has_depth", has_depth, (m,), b8),
+        ("no_depth", no_depth, (m,), b8)))
+    return arrays, strides, m
+
+
+def _pointers(name, arrays, strides):
+    """(pointer, stride) pairs, flat, of arrays on one CUDA device."""
+    if arrays[0].device.type != "cuda":
+        raise ValueError(f"{name}: all inputs must be on one CUDA device, got {arrays[0].device}")
+    return [v for a, s in zip(arrays, strides) for v in (a.data_ptr(), s)]
 
 
 def solve_pose_gn_lidar_reference(pose0, edge, plane, iters, huber_delta, lm_lambda):
@@ -41,22 +101,12 @@ def solve_pose_gn_lidar(pose0, edge, plane, iters, huber_delta, lm_lambda):
     global LAUNCHES
     if pose0.device.type == "cpu":
         return solve_pose_gn_lidar_reference(pose0, edge, plane, iters, huber_delta, lm_lambda)
-    ep, ea, eb, ev = edge
-    pp, pn, pd, pv = plane
-    kernels.require_cuda("solve_pose_gn_lidar", pose0, ep, ea, eb, ev, pp, pn, pd, pv)
-    # iteration-invariant edge constants: r = lp x c + k (pallas_gn.py:394-397)
-    c = ea - eb
-    inv = 1.0 / torch.clamp(torch.linalg.vector_norm(c, dim=-1, keepdim=True), min=1e-10)
-    ch = c * inv
-    ek = torch.linalg.cross(ea, eb, dim=-1) * inv
-    ed = torch.cat([ep.T, ch.T, ek.T, ev.to(torch.float32)[None]], dim=0).contiguous()
-    pl = torch.cat([pp.T, pn.T, pd[None], pv.to(torch.float32)[None]], dim=0).contiguous()
-    pose0 = pose0.to(torch.float32).contiguous()
+    arrays, strides, be, bs = lidar_layout(pose0, edge, plane)
+    ptrs = _pointers("solve_pose_gn_lidar", arrays, strides)
     out = torch.empty(7, dtype=torch.float32, device=pose0.device)
     rc = kernels.lib().vloam_gn_lidar(
-        pose0.data_ptr(), ed.data_ptr(), ed.shape[1], pl.data_ptr(), pl.shape[1],
-        iters, float(huber_delta), float(lm_lambda), out.data_ptr(),
-        kernels.stream_ptr(pose0.device),
+        *ptrs[:10], be, *ptrs[10:], bs, iters, float(huber_delta), float(lm_lambda),
+        out.data_ptr(), kernels.stream_ptr(pose0.device),
     )
     kernels.check(rc, "solve_pose_gn_lidar")
     LAUNCHES += 1
@@ -85,19 +135,12 @@ def solve_pose_gn_vo(pose0, X0, xb0, xb1, has_depth, no_depth, iters, huber_delt
     if pose0.device.type == "cpu":
         return solve_pose_gn_vo_reference(pose0, X0, xb0, xb1, has_depth, no_depth, iters,
                                           huber_delta, lm_lambda)
-    kernels.require_cuda("solve_pose_gn_vo", pose0, X0, xb0, xb1, has_depth, no_depth)
-    m = X0.shape[0]
-    if (X0.shape != (m, 3) or xb0.shape != (m, 2) or xb1.shape != (m, 2)
-            or has_depth.shape != (m,) or no_depth.shape != (m,)):
-        raise ValueError("solve_pose_gn_vo: want X0 (M, 3), xb0 and xb1 (M, 2), masks (M,)")
-    # one SoA (9, M) array: X0 xyz, xb0 xy, xb1 xy, has_depth, no_depth
-    soa = torch.cat([X0.T, xb0.T, xb1.T, has_depth.to(torch.float32)[None],
-                     no_depth.to(torch.float32)[None]], dim=0).to(torch.float32).contiguous()
-    pose0 = pose0.to(torch.float32).contiguous()
+    arrays, strides, m = vo_layout(pose0, X0, xb0, xb1, has_depth, no_depth)
+    ptrs = _pointers("solve_pose_gn_vo", arrays, strides)
     out = torch.empty(7, dtype=torch.float32, device=pose0.device)
     rc = kernels.lib().vloam_gn_vo(
-        pose0.data_ptr(), soa.data_ptr(), soa.shape[1], iters, float(huber_delta),
-        float(lm_lambda), out.data_ptr(), kernels.stream_ptr(pose0.device),
+        *ptrs, m, iters, float(huber_delta), float(lm_lambda), out.data_ptr(),
+        kernels.stream_ptr(pose0.device),
     )
     kernels.check(rc, "solve_pose_gn_vo")
     LAUNCHES_VO += 1
