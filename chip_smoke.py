@@ -34,7 +34,9 @@ Phases, each printed on its own lines:
    and (3c) the patch-gather measurement tool
    (``vloam_tpu_torch.tools.gather_experiments``) in process, with the
    launch counts at 0: its eleven kernels, the shipped two-image kernel and
-   the plain gather, each equal to its plain version and timed;
+   the plain gather, each equal to its plain version and timed, then the
+   four exact gathers on three inputs made to break the tensor-core ones
+   (one bucket, every alignment and edge, magnitudes 1e-30 to 1e30);
 4. the lidar slice (scan registration -> LO -> MO) alone, 12 frames;
 5. the full step ``vloam_step`` in the decoupled (D) mode at full
    ``kitti_hdl64`` width with the whole map on the device: 40 frames of
@@ -54,8 +56,9 @@ Phases, each printed on its own lines:
    (``optical_flow_match=False``, ORB descriptors on the single-image patch
    gather, brute-force Hamming matching), 12 frames.
 
-Then the device kernels one Gauss-Newton wrapper call runs (torch.profiler,
-after every timed phase: once it has run, launches cost more on the host),
+Then the device kernels one Gauss-Newton wrapper call, and one call of G10
+and of G11, runs (torch.profiler, after every timed phase: once it has run,
+launches cost more on the host),
 one JSON line of per-kernel results, the card's name and power limit, and
 last the line ``{"ok": true, "device": {...}}``.  Any failure raises
 and exits nonzero before that line; so does a machine without CUDA.
@@ -290,6 +293,7 @@ def main() -> int:
                                                               step_syncs)
     del dframes
     count_gn_kernels(gn_sites, card)
+    count_gather_kernels(card)
 
     def entry(name, **kw):
         assert launches[name] > 0, f"{name}: not launched on its path"
@@ -712,7 +716,9 @@ def check_stack_path(cfg, img, card):
 
 def check_variants(results, card):
     """Phase 3c: the measurement tool, in process.  Fills ``results`` for the
-    eleven measurement kernels and returns their launches in the tool's run."""
+    eleven measurement kernels and returns their launches in the tool's run;
+    then holds the four exact gathers to the host's windows on the tool's
+    three cases (tools.gather_experiments.check_cases)."""
     from vloam_tpu_torch.ops import gather_variants as gv
     from vloam_tpu_torch.tools import gather_experiments as tool
 
@@ -736,6 +742,9 @@ def check_variants(results, card):
                   + ("none" if r["library_ms"] is None else
                      f"{r['library_ms']:.4f} ms ({r['library_device_ms']:.4f} ms inside a graph)")
                   + f" [{card}]")
+    for line, ok in tool.check_cases("cuda"):
+        print(f"  {line} [{card}]")
+        assert ok, line
     print("  the sweeps' bounds (G1-G5) are their strips' bytes over the HBM rate, while their "
           "overlapping strips and repeats are served by L2 after the first pass: a time near "
           "such a bound is an L2 rate, not an HBM one.  library: one amax over the strips' view "
@@ -743,6 +752,19 @@ def check_variants(results, card):
           "G3, G4 (a maximum per strip, then a sum per eleven: two reductions) and G7, G8 "
           "(index arithmetic before the index call)")
     return launches
+
+
+def count_gather_kernels(card):
+    """The device kernels one call of G10 and of G11 runs on the tool's inputs,
+    by torch.profiler: one each (no PyTorch operation before the launch), or
+    "not measured" where the profiler shows no device event.  Run after every
+    timed phase, as count_gn_kernels."""
+    from vloam_tpu_torch.tools import gather_experiments as tool
+
+    print(f"== device kernels per G10 / G11 wrapper call (torch.profiler) [{card}]")
+    for line, names in tool.kernels_per_call():
+        print(f"  {line} [{card}]")
+        assert names is None or len(names) == 1, line
 
 
 def association_inputs(knn_args, knn_kw, gn_args):

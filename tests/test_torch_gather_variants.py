@@ -201,3 +201,115 @@ def test_tool_and_new_modules_never_import_jax_and_need_a_gpu():
                          env=env, timeout=120)
     assert res.returncode == 1 and "needs a CUDA GPU" in res.stderr, res.stderr[-2000:]
     assert res.stdout == ""
+
+
+# --- the inputs made to break the tensor-core gathers (G10, G11), small -------
+
+CASE_H, CASE_W, CASE_N = 100, 300, 64
+
+
+@pytest.mark.parametrize("name", ["gather_narrow", "gather_resident", "gather_mma",
+                                  "gather_resident_mma"])
+@pytest.mark.parametrize("case", ["one_bucket", "alignments", "magnitudes"])
+def test_exact_gathers_on_cases(case, name):
+    """The plain versions of the four exact gathers on small versions of the
+    tool's cases, against NumPy and the JAX ``_slice_patches`` of each image."""
+    from vloam_tpu_torch.tools import gather_experiments as tool
+
+    imgs, meta = tool.case_inputs(case, CASE_H, CASE_W, CASE_N)
+    padded, (ids, cx, cy) = imgs.numpy(), meta.numpy()
+    got = getattr(gv, name)(imgs, meta).numpy()
+    np.testing.assert_array_equal(got, np_windows(padded, ids, cy, cx))
+    for b in (0, 1):
+        corners = np.stack([cx[ids == b], cy[ids == b]], -1)
+        want = np.asarray(jax_slice_patches(jnp.array(padded[b]), jnp.array(corners), P))
+        np.testing.assert_array_equal(got[ids == b], want)
+    assert gv.LAUNCHES[name] == 0
+
+
+def test_cases_cover_what_they_claim():
+    from vloam_tpu_torch.tools import gather_experiments as tool
+
+    _, meta = tool.case_inputs("one_bucket", CASE_H, CASE_W, CASE_N)
+    ids, cx, cy = meta.numpy()
+    assert len(set(ids)) == 1 and len(set(cy // 8)) == 1 and meta.shape[1] == CASE_N
+    _, meta = tool.case_inputs("alignments", CASE_H, CASE_W, CASE_N)
+    ids, cx, cy = meta.numpy()
+    assert set(cx % 8) == set(range(8)) and {0, 1, 96, 127} <= set(cx % 128)
+    assert set(cy % 8) == set(range(8)) and set(ids) == {0, 1}
+    assert cx.max() == CASE_W - P and cy.max() == CASE_H - P and cx.min() == 0
+    assert {CASE_W - P - i for i in range(8)} <= set(cx[cy == CASE_H - P])
+    imgs, _ = tool.case_inputs("magnitudes", CASE_H, CASE_W, CASE_N)
+    x = imgs.numpy()[:, :CASE_H, :CASE_W]
+    nz = np.abs(x[x != 0])
+    assert 1e-30 <= nz.min() < 1e-28 and 1e28 < nz.max() <= 1e30
+    assert (x < 0).any() and not np.signbit(x[x == 0]).any()
+
+
+def test_tool_check_cases_on_cpu():
+    """The check phase 3c runs on the card, here on the plain versions."""
+    from vloam_tpu_torch.tools import gather_experiments as tool
+
+    out = tool.check_cases("cpu", CASE_H, CASE_W, CASE_N)
+    assert [ok for _, ok in out] == [True] * 3
+    assert all("gather_resident_mma True" in line for line, _ in out)
+
+
+def test_resident_mma_shared_memory():
+    """G11's block holds a 40-row strip of the padded width at stride w + 4
+    and its keypoint list: it fits at the tool's 1408 columns, not at 1536."""
+    assert gv.resident_mma_smem(1408) <= gv.SMEM_MAX < gv.resident_mma_smem(1536)
+
+
+# --- the exactness argument of the tensor-core shift ---------------------------
+
+TF32_MASK = np.uint32(0xFFFFE000)
+
+
+def split3(x):
+    """x = hi + mid + lo by masking, as the kernels cut each value before the
+    one-hot product (csrc/gather_variants.cu, load_split)."""
+    hi = (x.view(np.uint32) & TF32_MASK).view(np.float32)
+    r = x - hi
+    mid = (r.view(np.uint32) & TF32_MASK).view(np.float32)
+    return hi, mid, r - mid
+
+
+def bit_sweep():
+    """Every exponent of |x| >= 2**-103 with fixed and random mantissas, both signs."""
+    rng = np.random.default_rng(0)
+    mant = np.concatenate([[0, 1, 2, 0x1FFF, 0x2000, 0x3FFF, 0x400000, 0x555555, 0x2AAAAA,
+                            0x7FFFFF], rng.integers(0, 1 << 23, 64)]).astype(np.uint32)
+    exp = np.arange(24, 255, dtype=np.uint32)   # biased; 24 is 2**-103, 254 the largest finite
+    bits = (exp[:, None] << np.uint32(23)) | mant[None, :]
+    bits = np.concatenate([bits.ravel(), bits.ravel() | np.uint32(0x80000000)])
+    return bits.view(np.float32)
+
+
+@pytest.mark.parametrize("values", ["magnitudes", "bit_sweep", "zero"])
+def test_three_term_split_is_exact(values):
+    """Each term is exact in TF32 (its low 13 mantissa bits are zero) and of
+    x's sign, and (hi + mid) + lo gives x back bit for bit."""
+    from vloam_tpu_torch.tools import gather_experiments as tool
+
+    if values == "magnitudes":
+        imgs, _ = tool.case_inputs("magnitudes", CASE_H, CASE_W, CASE_N)
+        x = imgs.numpy().ravel()
+    elif values == "bit_sweep":
+        x = bit_sweep()
+    else:
+        x = np.zeros(4, np.float32)
+    hi, mid, lo = split3(x)
+    for term in (hi, mid, lo):
+        assert not (term.view(np.uint32) & np.uint32(0x1FFF)).any()
+        nz = term != 0
+        np.testing.assert_array_equal(np.signbit(term[nz]), np.signbit(x[nz]))
+    np.testing.assert_array_equal(((hi + mid) + lo).view(np.uint32), x.view(np.uint32))
+
+
+def test_three_term_split_bound():
+    """Below 2**-103 the remainder can be subnormal and the masked split no
+    longer gives TF32-exact terms: why the kernels' claim stops there."""
+    x = np.array([0x00800001], np.uint32).view(np.float32)   # 2**-126 (1 + 2**-23)
+    _, mid, lo = split3(x)
+    assert mid[0] == 0 and (lo.view(np.uint32) & np.uint32(0x1FFF)).any()

@@ -15,9 +15,9 @@
 // int32, rows (image id; cx; cy).  All write (n2, 32, 32) f32.
 //
 // What bounds them: bytes, and few.  The work is a copy of n2 * 4 KB; the
-// images (4.3 MB) stay in L2.  The tensor-core variants add a dense
-// (48, 256) x (256, 32) product per keypoint that the function does not
-// need: it is the method under test.
+// images (4.3 MB) stay in L2.  The tensor-core variants add a one-hot
+// product per window that the function does not need: it is the method
+// under test.
 //
 //   gather_narrow    the exact gather, fetching only the aligned 128-byte
 //                    lines a window touches: one line per row when
@@ -36,21 +36,41 @@
 //                    (225,280 bytes, all of a block's shared memory) in once
 //                    and a warp per keypoint writes its window from there.
 //                    An empty bucket's block returns at once.
-//   gather_mma       the exact gather, the column shift as a product with a
-//                    one-hot (256, 32) matrix on the tensor cores
-//                    (mma.sync m16n8k8, TF32), the row offset applied when
-//                    the accumulators are stored.  TF32 keeps 11 significant
-//                    bits, so each f32 is cut into three TF32 terms (hi, mid,
-//                    lo, by masking: each is exact and all have the sign of
-//                    x), each term gets its own accumulator, in which exactly
-//                    one non-zero product lands, and (hi + mid) + lo in f32
-//                    gives back x bit for bit.  The one-hot operand is built
-//                    in registers.  One block (4 warps, a column tile each)
-//                    a keypoint.
-//   gather_resident_mma  gather_resident's strip feeding gather_mma's
-//                    extraction; a warp per keypoint.
+//   gather_mma       (G10, for gather_mxu) the exact gather, the column shift
+//                    on the tensor cores (mma_window below).  The TPU kernel
+//                    fetches a (40, 256) band a keypoint because its unit of
+//                    copy is an (8, 128) tile; here the unit is 16 bytes, so
+//                    each warp copies only its window's 32 rows x 40 columns
+//                    from column cx & ~7 (5,120 B) with cp.async into a
+//                    two-slab ring, the next keypoint's rows in flight while
+//                    this one's product runs, and the tensor cores do only
+//                    the shift by cx % 8 that a 16-byte copy cannot.  Bound:
+//                    L2 bytes (~10.5 MB in, 8 MB out for 2048 windows) and
+//                    the latency of one copy a warp.  8 warps a block (80 KB
+//                    of slabs, two blocks an SM), a grid of at most two
+//                    blocks an SM that walks the keypoints.
+//   gather_resident_mma  (G11, for gather_vmem_mxu) the exact gather from a
+//                    strip staged once, the column shift on the tensor
+//                    cores.  The TPU kernel holds both images in VMEM and
+//                    walks the keypoints in order; 227 KB of shared memory
+//                    holds one 40-row strip, so one block per (image, 8-row
+//                    band) stages its strip with the TMA (one thread issues
+//                    a bulk copy a row to an mbarrier) and, while the copy is
+//                    in flight, finds its own keypoints in meta (its loads of
+//                    four passes of 512 issued at once; a ballot and a popc
+//                    prefix compact them into shared memory, in chunks of
+//                    1024, so a bucket of any size fits); then a warp a
+//                    keypoint runs mma_window on the strip.  One launch, no
+//                    sort.  Bound: each image row is staged by five
+//                    overlapping strips, ~19.8 MB through L2 for two
+//                    376x1248 images, at one 225 KB strip an SM (88 blocks).
+//                    An empty bucket writes nothing and lets its copy land
+//                    before it exits.
 
 #include <assert.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 #include "gather_common.cuh"
 
@@ -60,7 +80,6 @@ using namespace gather;
 
 constexpr int kThreads = 256;
 constexpr int kResidentThreads = 512;
-constexpr int kMmaThreads = 128;
 
 __device__ __forceinline__ void check_addr(const Addr& a, int n_img, int h_pad, int w) {
   assert(a.b >= 0 && a.b < n_img && a.cx >= 0 && a.cy >= 0 && a.cy8 + kP8 <= h_pad &&
@@ -161,102 +180,272 @@ gather_resident_kernel(const float* __restrict__ imgs, int h_pad, int w,
   }
 }
 
-// --- column extraction on the tensor cores ----------------------------------
+// --- the column shift on the tensor cores (G10, G11) ---------------------------
+//
+// One warp writes one window from A, the window's 32 rows in shared memory
+// from its 8-aligned left column cx & ~7 (row stride lda floats; the row
+// offset is in A's base), so the window starts at column s = cx % 8 of A:
+// out = A (32 x 40) * S, S[c][j] = (c == j + s).  Window column tile nt (8
+// columns) takes its 1s from A's k-block nt and, when s != 0, from k-block
+// nt + 1: 2 row tiles x 4 column tiles x at most 2 k-steps x 3 terms = at
+// most 48 mma.sync.m16n8k8 (TF32) a window.  The one-hot fragments of the
+// lower and the upper k-block are the same for every nt and are made once
+// in registers; a k-block shared by two tiles is loaded and split once.
+//
+// Exactness: TF32 keeps 11 significant bits, so each value x of A is cut by
+// masking into hi (its top 11 significant bits), mid (the top 11 of x - hi)
+// and lo (the last 2), each exact in TF32 and of x's sign.  Each term has its
+// own accumulator, in which exactly one non-zero product (the term times 1)
+// lands beside products with 0, and (hi + mid) + lo in f32 gives x back bit
+// for bit.  This holds for finite x with |x| >= 2^-103 (about 9.9e-32) and
+// for +0.0: below 2^-103 the remainder terms can fall among the subnormals,
+// where masking the representation no longer leaves a TF32-exact term; an
+// infinity or a NaN times 0 is a NaN.  An input of -0.0 comes back as +0.0,
+// because the accumulators start at +0.0 (torch.equal counts the two equal).
+//
+// Banks: lane (g, t) of a fragment load reads row g, column t of a k-block.
+// G11's strip pads its row stride to w + 4 (4 mod 32), so the 32 lanes fall
+// in 32 banks and the TMA still writes plain rows.  G10's slab keeps the
+// stride at 40 (8 mod 32), which leaves its 16-byte copies conflict-free, and
+// swaps the two 16-byte halves of each k-block in the rows whose index has
+// bit 2 set (an XOR swizzle of the 16-byte chunk by row bit 2): rows g and
+// g + 4 then fall 4 banks apart, and the fragment loads are conflict-free too.
 
 constexpr unsigned kTf32Mask = 0xFFFFE000u;   // sign, exponent and the 10 stored mantissa bits
 constexpr unsigned kOne = 0x3F800000u;        // 1.0f
-
-// x = hi + mid + lo, each exact in TF32 and of x's sign: hi keeps the top 11
-// significant bits of x, mid those of the remainder (at most 13 bits), lo
-// the last two.
-__device__ __forceinline__ void split3(float x, unsigned& hi, unsigned& mid, unsigned& lo) {
-  hi = __float_as_uint(x) & kTf32Mask;
-  const float r = x - __uint_as_float(hi);
-  mid = __float_as_uint(r) & kTf32Mask;
-  lo = __float_as_uint(r - __uint_as_float(mid));
-}
 
 // c (16 x 8) += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 out.  Lane
 // l = 4 g + t holds a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4);
 // b0 (t, g), b1 (t+4, g); c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One warp: columns [8 nt, 8 nt + 8) of the window whose band A (kP8 rows
-// of kBand columns, row stride lda, in shared memory) holds it at (dy, dx):
-// rolled = A (48 x 256, rows >= 40 zero) * S, S[c][j] = (c == j + dx), then
-// rows dy .. dy+31 of rolled go to dst (32 x 32).
-__device__ __forceinline__ void mma_extract(const float* A, int lda, int dx, int dy,
-                                            float* __restrict__ dst, int nt) {
+// An A fragment cut into its three TF32 terms.
+struct Split3 {
+  unsigned hi[4], mid[4], lo[4];
+};
+
+// The fragment of the k-block at `a` (the lane's row g, column t), split;
+// flip = 4 where the row's two 16-byte halves of the k-block are swapped.
+__device__ __forceinline__ Split3 load_split(const float* a, int lda, int flip) {
+  const float x[4] = {a[flip], a[8 * lda + flip], a[4 - flip], a[8 * lda + 4 - flip]};
+  Split3 f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = __float_as_uint(x[i]) & kTf32Mask;
+    const float r = x[i] - __uint_as_float(f.hi[i]);
+    f.mid[i] = __float_as_uint(r) & kTf32Mask;
+    f.lo[i] = __float_as_uint(r - __uint_as_float(f.mid[i]));
+  }
+  return f;
+}
+
+__device__ __forceinline__ void mma3(float (&c)[3][4], const Split3& f, unsigned b0, unsigned b1) {
+  mma_tf32(c[0], f.hi, b0, b1);
+  mma_tf32(c[1], f.mid, b0, b1);
+  mma_tf32(c[2], f.lo, b0, b1);
+}
+
+// One warp: dst (32 x 32, row-major, global) = columns s .. s+31 of A's 32
+// rows.  s is the same in every lane.  With `swizzled`, A's rows whose
+// index has bit 2 set hold each 8-column k-block's two 16-byte halves
+// swapped (G10's slab, below).
+__device__ __forceinline__ void mma_window(const float* A, int lda, int s, bool swizzled,
+                                           float* __restrict__ dst) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int hot = nt * 8 + g + dx;          // the band column that feeds window column 8 nt + g
-  for (int mt = 0; mt < 3; ++mt) {
-    const int r0 = mt * 16 + g, r1 = r0 + 8;
-    const float* a_r0 = A + r0 * lda + t;
-    const float* a_r1 = A + r1 * lda + t;
-    float c_hi[4] = {0.f, 0.f, 0.f, 0.f}, c_mid[4] = {0.f, 0.f, 0.f, 0.f},
-          c_lo[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int kb = 0; kb < kBand; kb += 8) {
-      const float a[4] = {r0 < kP8 ? a_r0[kb] : 0.f, r1 < kP8 ? a_r1[kb] : 0.f,
-                          r0 < kP8 ? a_r0[kb + 4] : 0.f, r1 < kP8 ? a_r1[kb + 4] : 0.f};
-      unsigned hi[4], mid[4], lo[4];
+  const int flip = swizzled ? g & 4 : 0;   // rows g and g + 8 of every row tile share bit 2
+  // column g of a tile is fed by A's column g + s from the tile's own k-block
+  // (lower) or, past its end, from the next one (upper)
+  const unsigned lo_b0 = t == g + s ? kOne : 0u, lo_b1 = t + 4 == g + s ? kOne : 0u;
+  const unsigned up_b0 = t + 8 == g + s ? kOne : 0u, up_b1 = t + 12 == g + s ? kOne : 0u;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) split3(a[i], hi[i], mid[i], lo[i]);
-      const unsigned b0 = (kb + t == hot) ? kOne : 0u;
-      const unsigned b1 = (kb + t + 4 == hot) ? kOne : 0u;
-      mma_tf32(c_hi, hi, b0, b1);
-      mma_tf32(c_mid, mid, b0, b1);
-      mma_tf32(c_lo, lo, b0, b1);
+  for (int mt = 0; mt < 2; ++mt) {
+    const float* a = A + (16 * mt + g) * lda + t;
+    Split3 cur = load_split(a, lda, flip);
+#pragma unroll
+    for (int nt = 0; nt < kP / 8; ++nt) {
+      float c[3][4] = {};
+      mma3(c, cur, lo_b0, lo_b1);
+      if (s != 0 || nt < kP / 8 - 1) {
+        const Split3 next = load_split(a + 8 * (nt + 1), lda, flip);
+        if (s != 0) mma3(c, next, up_b0, up_b1);
+        cur = next;
+      }
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = (c[0][i] + c[1][i]) + c[2][i];
+      float* d = dst + (16 * mt + g) * kP + 8 * nt + 2 * t;
+      *reinterpret_cast<float2*>(d) = make_float2(v[0], v[1]);
+      *reinterpret_cast<float2*>(d + 8 * kP) = make_float2(v[2], v[3]);
     }
-    float c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[i] = (c_hi[i] + c_mid[i]) + c_lo[i];
-    const int col = nt * 8 + 2 * t;
-    if (r0 >= dy && r0 < dy + kP)
-      *reinterpret_cast<float2*>(dst + (r0 - dy) * kP + col) = make_float2(c[0], c[1]);
-    if (r1 >= dy && r1 < dy + kP)
-      *reinterpret_cast<float2*>(dst + (r1 - dy) * kP + col) = make_float2(c[2], c[3]);
   }
 }
 
-__global__ void __launch_bounds__(kMmaThreads)
+// --- G10: a copy of the window's own rows per keypoint ---------------------------
+
+constexpr int kMmaWarps = 8;
+constexpr int kMmaBlocksPerSm = 2;
+constexpr int kSlabCols = kP + 8;                 // from cx & ~7: the window and its shift
+constexpr int kSlabFloats = kP * kSlabCols;       // row stride 40, swizzled (see Banks above)
+constexpr int kMmaSmem = kMmaWarps * 2 * kSlabFloats * 4;   // two slabs a warp: 81,920 bytes
+
+int g_sm_count = 0;   // the card's SMs, set by vloam_gather_mma_setup
+
+// This lane's share of the 32 x 40 copy of keypoint a's rows into a slab;
+// row r's 16-byte chunk c lands at chunk c ^ ((r >> 2) & 1).
+__device__ __forceinline__ void copy_window_rows(float* slab, const float* __restrict__ imgs,
+                                                 int h_pad, int w, const Addr& a) {
+  const float* src = imgs + (static_cast<size_t>(a.b) * h_pad + a.cy) * w + (a.cx & ~7);
+  for (int i = threadIdx.x & 31; i < kP * (kSlabCols / 4); i += 32) {
+    const int r = i / (kSlabCols / 4), c4 = i % (kSlabCols / 4);
+    cp_async16(slab + r * kSlabCols + 4 * (c4 ^ ((r >> 2) & 1)),
+               src + static_cast<size_t>(r) * w + 4 * c4);
+  }
+}
+
+__global__ void __launch_bounds__(kMmaWarps * 32)
 gather_mma_kernel(const float* __restrict__ imgs, int n_img, int h_pad, int w,
                   const int* __restrict__ meta, int n2, float* __restrict__ out) {
-  __shared__ __align__(16) float band[kP8 * kBand];
-  const int k = blockIdx.x;
-  const Addr a = decode(meta, n2, k);
-  check_addr(a, n_img, h_pad, w);
-  stage_band(band, imgs + static_cast<size_t>(a.b) * h_pad * w, w, a.cy8, a.cx128);
-  mma_extract(band, kBand, a.dx, a.dy, out + static_cast<size_t>(k) * kP * kP, threadIdx.x >> 5);
+  extern __shared__ __align__(16) float slabs[];
+  const int warp = threadIdx.x >> 5;
+  float* ring = slabs + warp * 2 * kSlabFloats;
+  const int stride = gridDim.x * kMmaWarps;
+  int k = blockIdx.x * kMmaWarps + warp;
+  if (k >= n2) return;   // per warp: no block barrier follows
+  Addr cur = decode(meta, n2, k);
+  check_addr(cur, n_img, h_pad, w);
+  copy_window_rows(ring, imgs, h_pad, w, cur);
+  cp_async_commit();
+  for (int slot = 0; k < n2; k += stride, slot ^= 1) {
+    const int next = k + stride;
+    Addr nxt = cur;
+    if (next < n2) {
+      nxt = decode(meta, n2, next);
+      check_addr(nxt, n_img, h_pad, w);
+      copy_window_rows(ring + (slot ^ 1) * kSlabFloats, imgs, h_pad, w, nxt);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();   // this keypoint's rows have landed, the next one's may be in flight
+    __syncwarp();
+    mma_window(ring + slot * kSlabFloats, kSlabCols, cur.cx & 7, true,
+               out + static_cast<size_t>(k) * kP * kP);
+    __syncwarp();         // the slab is read before the copy after next overwrites it
+    cur = nxt;
+  }
+}
+
+// --- G11: one launch that stages a strip and finds its own keypoints ------------------
+
+constexpr int kResidentWarps = kResidentThreads / 32;
+constexpr int kListCap = 1024;   // keypoint indices a block holds at once
+constexpr int kScanDepth = 4;    // passes of 512 keypoints whose meta a thread loads at once
+
+// G11's dynamic shared memory: the strip (40 rows at stride w + 4), its
+// mbarrier (16 bytes with padding), the warps' counts, the keypoint list.
+int resident_mma_smem(int w) {
+  return kP8 * (w + 4) * 4 + 16 + 4 * kResidentWarps + 4 * kListCap;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
 }
 
 __global__ void __launch_bounds__(kResidentThreads)
-gather_resident_mma_kernel(const float* __restrict__ imgs, int h_pad, int w,
-                           const int* __restrict__ meta, int n2,
-                           const long long* __restrict__ order,
-                           const long long* __restrict__ offsets, int n_bands,
-                           float* __restrict__ out) {
+gather_resident_mma_kernel(const float* __restrict__ imgs, int n_img, int h_pad, int w,
+                           const int* __restrict__ meta, int n2, float* __restrict__ out) {
   extern __shared__ __align__(16) float strip[];
-  const int start = static_cast<int>(offsets[blockIdx.x]);
-  const int end = static_cast<int>(offsets[blockIdx.x + 1]);
-  if (start == end) return;
-  const int b = blockIdx.x / n_bands, row0 = 8 * (blockIdx.x % n_bands);
-  stage_strip(strip, imgs + static_cast<size_t>(b) * h_pad * w, w, row0);
-  const int warp = threadIdx.x >> 5;
-  for (int i = start + warp; i < end; i += kResidentThreads / 32) {
-    const int k = static_cast<int>(order[i]);
-    const int cx = meta[n2 + k], dy = meta[2 * n2 + k] - row0;
-    const int dx = cx & 127, cx128 = cx - dx;
-    assert(meta[k] == b && dy >= 0 && dy < 8 && cx >= 0 && cx128 + kBand <= w);
-    float* dst = out + static_cast<size_t>(k) * kP * kP;
-    for (int nt = 0; nt < kP / 8; ++nt) mma_extract(strip + cx128, w, dx, dy, dst, nt);
+  const int ld = w + 4;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(strip + kP8 * ld);
+  int* warp_n = reinterpret_cast<int*>(bar + 2);
+  int* list = warp_n + kResidentWarps;
+  const int n_bands = (h_pad - kP8) / 8 + 1;
+  const int b = blockIdx.x / n_bands, band = blockIdx.x % n_bands, row0 = 8 * band;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned bar_s = smem_u32(bar);
+
+  // the strip's copy first: one bulk copy a row, all completing on one mbarrier
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar_s), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar_s),
+                 "r"(kP8 * w * 4) : "memory");
+    const float* src = imgs + (static_cast<size_t>(b) * h_pad + row0) * w;
+    for (int r = 0; r < kP8; ++r) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+          ::"r"(smem_u32(strip + r * ld)), "l"(src + static_cast<size_t>(r) * w), "r"(w * 4),
+          "r"(bar_s) : "memory");
+    }
   }
+
+  // then this bucket's keypoints, found in meta while the strip is in flight:
+  // the meta of kScanDepth passes of 512 keypoints loaded at once, then each
+  // pass compacted into `list` by a ballot and a popc prefix; the list is
+  // drained before it could overflow
+  bool staged = false;
+  int n_list = 0;   // the same in every thread
+  for (int base = 0; base < n2; base += kScanDepth * kResidentThreads) {
+    int kbs[kScanDepth], cys[kScanDepth];
+#pragma unroll
+    for (int j = 0; j < kScanDepth; ++j) {
+      const int k = base + j * kResidentThreads + threadIdx.x;
+      kbs[j] = k < n2 ? meta[k] : -1;
+      cys[j] = k < n2 ? meta[2 * n2 + k] : 0;
+      if (blockIdx.x == 0 && k < n2) {   // every keypoint lies in some bucket
+        const int cx = meta[n2 + k];
+        assert(kbs[j] >= 0 && kbs[j] < n_img && cys[j] >= 0 && (cys[j] >> 3) < n_bands &&
+               cx >= 0 && (cx & ~127) + kBand <= w);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kScanDepth; ++j) {
+      const int pass = base + j * kResidentThreads;
+      if (pass >= n2) break;
+      const bool mine = kbs[j] == b && (cys[j] >> 3) == band;
+      const unsigned ballot = __ballot_sync(0xffffffffu, mine);
+      if (lane == 0) warp_n[warp] = __popc(ballot);
+      __syncthreads();
+      int off = n_list;
+#pragma unroll
+      for (int i = 0; i < kResidentWarps; ++i) {
+        off += i < warp ? warp_n[i] : 0;
+        n_list += warp_n[i];
+      }
+      if (mine) list[off + __popc(ballot & ((1u << lane) - 1u))] = pass + threadIdx.x;
+      __syncthreads();   // the list is written; warp_n may be rewritten
+      if (n_list > 0 && (n_list > kListCap - kResidentThreads || pass + kResidentThreads >= n2)) {
+        if (!staged) {
+          mbar_wait(bar_s, 0);
+          staged = true;
+        }
+        for (int i = warp; i < n_list; i += kResidentWarps) {
+          const int kk = list[i];
+          const int cx = meta[n2 + kk], dy = meta[2 * n2 + kk] - row0;
+          mma_window(strip + dy * ld + (cx & ~7), ld, cx & 7, false,
+                     out + static_cast<size_t>(kk) * kP * kP);
+        }
+        __syncthreads();   // the list is read before the next pass rewrites it
+        n_list = 0;
+      }
+    }
+  }
+  if (!staged) mbar_wait(bar_s, 0);   // an empty bucket lets its copy land before it exits
 }
 
 using BandKernel = void (*)(const float*, int, int, int, const int*, int, float*);
@@ -280,11 +469,12 @@ int launch_bucketed(BucketKernel kernel, const float* imgs, int n_img, int h_pad
 }
 
 int launch_band(BandKernel kernel, int blocks, int threads, const float* imgs, int n_img,
-                int h_pad, int w, const int* meta, int n2, float* out, void* stream) {
+                int h_pad, int w, const int* meta, int n2, float* out, void* stream,
+                int smem = 0) {
   if (w % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (blocks > 0) {
-    kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(imgs, n_img, h_pad, w,
-                                                                       meta, n2, out);
+    kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(imgs, n_img, h_pad, w,
+                                                                          meta, n2, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -324,15 +514,41 @@ extern "C" int vloam_gather_resident(const float* imgs, int n_img, int h_pad, in
                          out, stream);
 }
 
-extern "C" int vloam_gather_mma(const float* imgs, int n_img, int h_pad, int w, const int* meta,
-                                int n2, float* out, void* stream) {
-  return launch_band(gather_mma_kernel, n2, kMmaThreads, imgs, n_img, h_pad, w, meta, n2, out,
-                     stream);
+// Once, before the first launch of G10 or G11 (kernels.lib() calls it): their
+// shared-memory limits and the SM count that sizes G10's grid.
+extern "C" int vloam_gather_mma_setup() {
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc == 0)
+    rc = static_cast<int>(cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, dev));
+  if (rc == 0)
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        gather_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmem));
+  if (rc == 0)
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        gather_resident_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem));
+  return rc;
 }
 
+extern "C" int vloam_gather_mma(const float* imgs, int n_img, int h_pad, int w, const int* meta,
+                                int n2, float* out, void* stream) {
+  const int blocks =
+      std::min((n2 + kMmaWarps - 1) / kMmaWarps, kMmaBlocksPerSm * std::max(g_sm_count, 1));
+  return launch_band(gather_mma_kernel, blocks, kMmaWarps * 32, imgs, n_img, h_pad, w, meta, n2,
+                     out, stream, kMmaSmem);
+}
+
+// n_bands = (h_pad - 40) / 8 + 1 blocks an image; resident_mma_smem(w) bytes
+// of shared memory must fit a block.
 extern "C" int vloam_gather_resident_mma(const float* imgs, int n_img, int h_pad, int w,
-                                         const int* meta, int n2, const long long* order,
-                                         const long long* offsets, float* out, void* stream) {
-  return launch_bucketed(gather_resident_mma_kernel, imgs, n_img, h_pad, w, meta, n2, order,
-                         offsets, out, stream);
+                                         const int* meta, int n2, float* out, void* stream) {
+  if (w % 4 != 0 || resident_mma_smem(w) > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_bands = (h_pad - kP8) / 8 + 1;
+  if (n2 > 0) {
+    gather_resident_mma_kernel<<<n_img * n_bands, kResidentThreads, resident_mma_smem(w),
+                                 static_cast<cudaStream_t>(stream)>>>(imgs, n_img, h_pad, w, meta,
+                                                                      n2, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -60,6 +60,7 @@ _SIGNATURES = {
     "vloam_gn_vo": [_P, _L] * 6 + [_I, _I, _F, _F, _P, _P],
     "vloam_gn_lidar_setup": [],
     "vloam_gn_vo_setup": [],
+    "vloam_gather_mma_setup": [],
     "vloam_gather_patches": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "vloam_gather_patches_stack": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
     "vloam_whole_image": [_P, _I, _I, _P, _P],
@@ -69,12 +70,11 @@ for _name in ("vloam_sweep_sync", "vloam_sweep_ring2", "vloam_sweep_ring11",
               "vloam_sweep_ring11_flat"):
     _SIGNATURES[_name] = [_P, _I, _I, _I, _P, _P]
 # the gather formulations: (imgs, n_img, h_pad, w, meta, n2, out, stream), the
-# bucketed ones with (order, offsets) before out
+# bucketed one (G9) with (order, offsets) before out
 for _name in ("vloam_gather_narrow", "vloam_gather_dma_only", "vloam_gather_compact_only",
-              "vloam_gather_mma"):
+              "vloam_gather_mma", "vloam_gather_resident_mma"):
     _SIGNATURES[_name] = [_P, _I, _I, _I, _P, _I, _P, _P]
-for _name in ("vloam_gather_resident", "vloam_gather_resident_mma"):
-    _SIGNATURES[_name] = [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P]
+_SIGNATURES["vloam_gather_resident"] = [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P]
 
 _lib = None
 
@@ -142,7 +142,7 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         # kernel attributes (dynamic shared memory above 48 KB) are set once
         # here, never inside a launch or a capture
-        for setup in ("vloam_gn_lidar_setup", "vloam_gn_vo_setup"):
+        for setup in ("vloam_gn_lidar_setup", "vloam_gn_vo_setup", "vloam_gather_mma_setup"):
             check(getattr(handle, setup)(), setup)
         _lib = handle
     return _lib

@@ -15,7 +15,7 @@ They ask what limits the patch gather of ``ops/patch_gather`` and are run by
   G8    ``compact_only``        compaction only: one band per 32 keypoints
   G9    ``gather_resident``     exact gather from a strip staged once
   G10   ``gather_mma``          exact gather, column shift on tensor cores
-  G11   ``gather_resident_mma`` G9's strip feeding G10's extraction
+  G11   ``gather_resident_mma`` G9's strip feeding G10's shift, one launch
   ====  ======================  ===========================================
 
 The sweeps (G1-G5) reduce what they read so that every copy can be checked:
@@ -49,6 +49,7 @@ BAND = 256        # columns of a band, from a 128-aligned base
 BLOCK_KP = 32     # keypoints that share one band in compact_only
 BATCH = 11        # strips per block, and chunks in flight, of the batched sweeps
 REPS = 10         # repeats of whole_image
+SMEM_MAX = 232448  # bytes of shared memory a block may have on sm_90
 
 NAMES = ("strip_sweep", "strip_sweep_db", "strip_sweep_batched", "strip_sweep_flat",
          "whole_image", "gather_narrow", "dma_only", "compact_only", "gather_resident",
@@ -272,18 +273,14 @@ def band_buckets(imgs, meta):
     return order.contiguous(), offsets.contiguous()
 
 
-_RESIDENT_ENTRY = {"gather_resident": "vloam_gather_resident",
-                   "gather_resident_mma": "vloam_gather_resident_mma"}
-
-
-def _resident(name, imgs, meta, buckets=None):
-    """The launch of G9 or G11; ``buckets`` takes a ready ``band_buckets(imgs, meta)``."""
-    _check_meta(name, imgs, meta)
-    if P8 * imgs.shape[2] * 4 > 232448:
-        raise ValueError(f"{name}: a 40-row strip of {imgs.shape[2]} columns does not fit a "
-                         "block's shared memory")
+def _resident(imgs, meta, buckets=None):
+    """The launch of G9; ``buckets`` takes a ready ``band_buckets(imgs, meta)``."""
+    _check_meta("gather_resident", imgs, meta)
+    if P8 * imgs.shape[2] * 4 > SMEM_MAX:
+        raise ValueError(f"gather_resident: a 40-row strip of {imgs.shape[2]} columns does not "
+                         "fit a block's shared memory")
     order, offsets = band_buckets(imgs, meta) if buckets is None else buckets
-    return _gather(name, _RESIDENT_ENTRY[name], imgs, meta, order, offsets)
+    return _gather("gather_resident", "vloam_gather_resident", imgs, meta, order, offsets)
 
 
 def gather_resident(imgs, meta):
@@ -291,20 +288,39 @@ def gather_resident(imgs, meta):
     its windows are written from there."""
     if imgs.device.type == "cpu":
         return gather_resident_reference(imgs, meta)
-    return _resident("gather_resident", imgs, meta)
+    return _resident(imgs, meta)
 
 
 def gather_mma(imgs, meta):
-    """G10: the exact gather; the column shift is a one-hot product on the
-    tensor cores (three exact TF32 terms per value), bit-equal to a copy."""
+    """G10: the exact gather with the column shift on the tensor cores.  Each
+    warp copies its window's 32 rows from the 8-aligned column below cx (40
+    columns) into a two-slab ring and shifts them by cx % 8 as a one-hot
+    product (``mma.sync`` TF32 over the one or two k-steps that hold the 1s,
+    three exact terms per value): bit-equal to a copy for finite values of
+    magnitude at least 2**-103 and zero (-0.0 comes back as +0.0)."""
     if imgs.device.type == "cpu":
         return gather_mma_reference(imgs, meta)
     _check_meta("gather_mma", imgs, meta)
     return _gather("gather_mma", "vloam_gather_mma", imgs, meta)
 
 
+def resident_mma_smem(w: int) -> int:
+    """Bytes of shared memory one G11 block takes for images ``w`` wide: the
+    40-row strip at row stride w + 4, its barrier, the warps' counts and a
+    list of 1024 keypoint indices (``resident_mma_smem`` in
+    ``csrc/gather_variants.cu``)."""
+    return P8 * (w + 4) * 4 + 16 + 4 * 16 + 4 * 1024
+
+
 def gather_resident_mma(imgs, meta):
-    """G11: G9's resident strip with G10's tensor-core extraction."""
+    """G11: the exact gather in one launch.  One block per (image, 8-row band)
+    stages its 40-row strip with the TMA, finds its own keypoints in ``meta``
+    while the copy is in flight, and writes their windows with G10's
+    tensor-core shift; no sort, no PyTorch operation before the launch."""
     if imgs.device.type == "cpu":
         return gather_resident_mma_reference(imgs, meta)
-    return _resident("gather_resident_mma", imgs, meta)
+    _check_meta("gather_resident_mma", imgs, meta)
+    if resident_mma_smem(imgs.shape[2]) > SMEM_MAX:
+        raise ValueError(f"gather_resident_mma: a 40-row strip of {imgs.shape[2]} columns does "
+                         "not fit a block's shared memory")
+    return _gather("gather_resident_mma", "vloam_gather_resident_mma", imgs, meta)

@@ -1,7 +1,7 @@
 """Measure formulations of the patch gather on the GPU (counterpart of the
 reference's ``tools/gather_experiments.py``).
 
-    python -m vloam_tpu_torch.tools.gather_experiments
+    python -m vloam_tpu_torch.tools.gather_experiments [--src DIR]
 
 At the ``kitti_hdl64`` shapes (two 376x1248 f32 images, 1024 corners per
 image from ``default_rng(0)``, 32x32 patches; padded images 384x1408, 88
@@ -22,15 +22,19 @@ GB/s of the device time for the sweeps (all repeats after the first find the
 the plain version's ms, the ms of the one PyTorch call that computes the
 same function where there is one (``library``: ``amax`` over an ``unfold``
 or ``expand`` view for G1, G2 and G5, one index call on an ``unfold`` view
-for the exact gathers), ``correct=``; then the card's name and power limit.
-It needs a GPU and exits nonzero without one.
+for the exact gathers), ``correct=``; then the four exact gathers and their
+plain version on three inputs made to break the tensor-core ones (``CASES``),
+the device kernels one call of G10 and of G11 runs (torch.profiler), and the
+card's name and power limit.  It needs a GPU and exits nonzero without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -191,15 +195,117 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
         add(name, LABELS[name], lambda k=kernel: k(imgs, meta), lambda p=plain: p(imgs, meta),
             pair_bytes if exact else padded_bytes,
             library=(lambda: windows[ids, cy, cx]) if exact else None)
-    # the two bucketed variants again with the buckets made beforehand: the kernel alone
+    # G9 again with its buckets made beforehand: the kernel alone (G11 finds its own)
     buckets = gv.band_buckets(imgs, meta)
-    for name in ("gather_resident", "gather_resident_mma"):
-        alone = lambda n=name: gv._resident(n, imgs, meta, buckets)  # noqa: E731
-        next(r for r in rows if r["name"] == name).update(
-            kernel_only_ms=time_ms(alone, runs), kernel_only_device_ms=graph_ms(alone))
+    alone = lambda: gv._resident(imgs, meta, buckets)  # noqa: E731
+    next(r for r in rows if r["name"] == "gather_resident").update(
+        kernel_only_ms=time_ms(alone, runs), kernel_only_device_ms=graph_ms(alone))
 
     add("plain_gather", "C plain PyTorch index gather", plain_pair, plain_pair, pair_bytes)
     return rows
+
+
+CASES = ("one_bucket", "alignments", "magnitudes")
+EXACT = ("gather_narrow", "gather_resident", "gather_mma", "gather_resident_mma")
+
+
+def case_inputs(case: str, H: int, W: int, n: int, device="cpu"):
+    """Inputs made to break the tensor-core gathers, from NumPy's
+    ``default_rng(1)``: (imgs, the two H x W images padded by ``pad_img``;
+    meta (3, m) int32 of legal corners).
+
+      one_bucket  n keypoints in one (image, 8-row band) bucket, so that G11
+                  drains its keypoint list more than once when n > 1024;
+      alignments  every cx % 8 in 0..7 and cx % 128 in {0, 1, 96, 127}, each
+                  at every cy % 8 in both images, max(1, n // 80) times, then
+                  the 64 windows of each image that touch its right and bottom
+                  edges, and three corners; shuffled;
+      magnitudes  n random corners of images whose values are
+                  sign * 10**U(-30, 30) of both signs, one in twenty +0.0
+                  (-0.0 comes back as +0.0 from the tensor cores).
+    """
+    from vloam_tpu_torch.ops import gather_variants as gv
+
+    P = gv.P
+    rng = np.random.default_rng(1)
+    if case == "magnitudes":
+        mag = 10.0 ** rng.uniform(-30, 30, (2, H, W))
+        vals = np.where(rng.random((2, H, W)) < 0.5, -mag, mag)
+        raw = np.where(rng.random((2, H, W)) < 0.05, 0.0, vals).astype(np.float32)
+    else:
+        raw = rng.uniform(0, 255, (2, H, W)).astype(np.float32)
+    if case == "one_bucket":
+        band = int(rng.integers(0, (H - P) // 8 + 1))
+        rows = 8 * band + rng.integers(0, min(8, H - P - 8 * band + 1), n)
+        ids = np.full(n, int(rng.integers(0, 2)))
+        cols = rng.integers(0, W - P + 1, n)
+    elif case == "alignments":
+        res = np.array([0, 1, 2, 3, 4, 5, 6, 7, 96, 127])
+        ids, res, dy = (a.ravel() for a in np.meshgrid(
+            [0, 1], res, np.arange(8), np.arange(max(1, n // 80)), indexing="ij")[:3])
+        cols = 128 * rng.integers(0, (W - P - res) // 128 + 1) + res
+        rows = 8 * rng.integers(0, (H - P - dy) // 8 + 1) + dy
+        ex, ey = np.meshgrid(W - P - np.arange(8), H - P - np.arange(8), indexing="ij")
+        edge_c = np.concatenate([ex.ravel(), [0, W - P, 0]])
+        edge_r = np.concatenate([ey.ravel(), [0, 0, H - P]])
+        ids = np.concatenate([ids, np.repeat([0, 1], edge_c.size)])
+        cols = np.concatenate([cols, edge_c, edge_c])
+        rows = np.concatenate([rows, edge_r, edge_r])
+        order = rng.permutation(ids.size)
+        ids, cols, rows = ids[order], cols[order], rows[order]
+    elif case == "magnitudes":
+        ids = rng.integers(0, 2, n)
+        cols, rows = rng.integers(0, W - P + 1, n), rng.integers(0, H - P + 1, n)
+    else:
+        raise KeyError(case)
+    imgs = torch.stack([gv.pad_img(torch.tensor(r, device=device)) for r in raw])
+    meta = torch.tensor(np.stack([ids, cols, rows]).astype(np.int32), device=device)
+    return imgs, meta
+
+
+def host_windows(imgs, meta) -> np.ndarray:
+    """The windows cut on the host with NumPy: the cases' expected output."""
+    from vloam_tpu_torch.ops.gather_variants import P
+
+    padded, (ids, cx, cy) = imgs.cpu().numpy(), meta.cpu().numpy().astype(np.int64)
+    off = np.arange(P)
+    return padded[ids[:, None, None], cy[:, None, None] + off[None, :, None],
+                  cx[:, None, None] + off[None, None, :]]
+
+
+def check_cases(device="cuda", H: int = 376, W: int = 1248, n: int = 2048) -> list[tuple]:
+    """The four exact gathers and their plain version on each of ``CASES``
+    (at the tool's image size by default), each held with ``torch.equal`` to
+    the windows cut on the host.  One (line, all equal) a case."""
+    from vloam_tpu_torch.ops import gather_variants as gv
+
+    out = []
+    for case in CASES:
+        imgs, meta = case_inputs(case, H, W, n, device)
+        want = torch.tensor(host_windows(imgs, meta), device=device)
+        equal = {name: torch.equal(getattr(gv, name)(imgs, meta), want) for name in EXACT}
+        equal["plain"] = torch.equal(gv.gather_reference(imgs, meta), want)
+        ok = all(equal.values())
+        out.append((f"case {case}: {meta.shape[1]} keypoints, equal to the windows cut on the "
+                    f"host: " + ", ".join(f"{k} {v}" for k, v in equal.items()), ok))
+    return out
+
+
+def kernels_per_call(names=("gather_mma", "gather_resident_mma")) -> list[tuple]:
+    """The device kernels one wrapper call runs on the tool's inputs, by
+    torch.profiler: (line, names or None) a kernel.  Run it after every
+    timing: once the profiler has run, launches cost more on the host."""
+    from vloam_tpu_torch.ops import gather_variants as gv
+    from vloam_tpu_torch.tools.gn_check import device_kernels
+
+    _, _, _, imgs, meta = make_inputs(torch.device("cuda"))
+    out = []
+    for name in names:
+        got = device_kernels(lambda f=getattr(gv, name): f(imgs, meta))
+        kern = ("not measured (the profiler showed no device event)" if got is None else
+                f"{len(got)} ({', '.join(sorted(set(g[:40] for g in got)))})")
+        out.append((f"{name}: device kernels per wrapper call {kern}", got))
+    return out
 
 
 def report(rows, card: str) -> list[str]:
@@ -224,13 +330,25 @@ def report(rows, card: str) -> list[str]:
     return lines
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--src", help="build the kernels from this copy of csrc/ instead "
+                        "(to time an edited copy beside the tree in one call)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
         return 1
+    if args.src:
+        from vloam_tpu_torch import kernels
+
+        kernels.SRC_DIR = Path(args.src).resolve()
+    card = card_line()
     rows = run("cuda")
-    print("\n".join(report(rows, card_line())))
-    return 0 if all(r["correct"] for r in rows) else 1
+    cases = check_cases()
+    counts = kernels_per_call()
+    print("\n".join(report(rows, card)[:-1] + [line for line, _ in cases + counts] + [card]))
+    ok = all(r["correct"] for r in rows) and all(good for _, good in cases)
+    return 0 if ok and all(got is None or len(got) == 1 for _, got in counts) else 1
 
 
 if __name__ == "__main__":
