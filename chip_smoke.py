@@ -8,7 +8,9 @@ Phases, each printed on its own lines:
 1. the card (name and power limit from nvidia-smi), torch/CUDA versions,
    nvcc, and whether triton imports;
 2. the kernel build from ``vloam_tpu_torch/csrc`` (one nvcc per source, all
-   at once) and its seconds;
+   at once) and its seconds, and the stream handle the wrappers launch on
+   (``kernels.stream_ptr``) against PyTorch's current stream, outside and
+   inside a graph capture;
 3. each kernel against its plain PyTorch version on the card, on the
    arguments the frame step passes it (captured from a warm-up drive of the
    full step): the k-NN pair and lidar GN at LO's and MO's call shapes (the
@@ -35,8 +37,10 @@ Phases, each printed on its own lines:
    (``vloam_tpu_torch.tools.gather_experiments``) in process, with the
    launch counts at 0: its eleven kernels, the shipped two-image kernel and
    the plain gather, each equal to its plain version and timed, then the
-   four exact gathers on three inputs made to break the tensor-core ones
-   (one bucket, every alignment and edge, magnitudes 1e-30 to 1e30);
+   four exact gathers on four inputs made to break them (one bucket, every
+   alignment and edge, magnitudes 1e-30 to 1e30, 37 keypoints in two bands
+   of each image) and the five sweeps on negative images with planted
+   maxima;
 4. the lidar slice (scan registration -> LO -> MO) alone, 12 frames;
 5. the full step ``vloam_step`` in the decoupled (D) mode at full
    ``kitti_hdl64`` width with the whole map on the device: 40 frames of
@@ -56,9 +60,9 @@ Phases, each printed on its own lines:
    (``optical_flow_match=False``, ORB descriptors on the single-image patch
    gather, brute-force Hamming matching), 12 frames.
 
-Then the device kernels one Gauss-Newton wrapper call, and one call of G10
-and of G11, runs (torch.profiler, after every timed phase: once it has run,
-launches cost more on the host),
+Then the device kernels one Gauss-Newton wrapper call, and one call of G1,
+G9, G10 and G11, runs (torch.profiler, after every timed phase: once it has
+run, launches cost more on the host),
 one JSON line of per-kernel results, the card's name and power limit, and
 last the line ``{"ok": true, "device": {...}}``.  Any failure raises
 and exits nonzero before that line; so does a machine without CUDA.
@@ -262,6 +266,7 @@ def main() -> int:
     so = kernels.build(verbose=True)
     kernels.lib()
     print(f"built {so.name} from {', '.join(kernels.SOURCES)} in {time.perf_counter() - t0:.2f} s")
+    check_stream_ptr(dev, card)
 
     cfg = kitti_hdl64()
     ext = fg.kitti_default_extrinsics(dev)
@@ -742,26 +747,47 @@ def check_variants(results, card):
                   + ("none" if r["library_ms"] is None else
                      f"{r['library_ms']:.4f} ms ({r['library_device_ms']:.4f} ms inside a graph)")
                   + f" [{card}]")
-    for line, ok in tool.check_cases("cuda"):
+    for line, ok in tool.check_cases("cuda") + [tool.check_sweep_case("cuda")]:
         print(f"  {line} [{card}]")
         assert ok, line
-    print("  the sweeps' bounds (G1-G5) are their strips' bytes over the HBM rate, while their "
-          "overlapping strips and repeats are served by L2 after the first pass: a time near "
-          "such a bound is an L2 rate, not an HBM one.  library: one amax over the strips' view "
+    print("  the sweeps' bounds (G1-G5) are the padded images read once over the HBM rate, while "
+          "by their definition G1-G4 read every overlapping strip (4.6x the images) and G5 the "
+          "images ten times, after the first pass from L2: none can reach half such a bound and "
+          "stay the sweep it is.  library: one amax over the strips' view "
           "(G1, G2, G5) or one index call on the view of all windows (G6, G9-G11); none for "
           "G3, G4 (a maximum per strip, then a sum per eleven: two reductions) and G7, G8 "
           "(index arithmetic before the index call)")
     return launches
 
 
+def check_stream_ptr(dev, card):
+    """The stream handle every wrapper launches on (``kernels.stream_ptr``)
+    is PyTorch's current stream's, outside a graph capture and inside one,
+    where the current stream is the capture's side stream."""
+    from vloam_tpu_torch import kernels
+
+    outside = (kernels.stream_ptr(dev), torch.cuda.current_stream(dev).cuda_stream)
+    x = torch.zeros(1, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        inside = (kernels.stream_ptr(dev), torch.cuda.current_stream(dev).cuda_stream)
+        x.add_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert outside[0] == outside[1] and inside[0] == inside[1] and inside[0] != outside[0], \
+        (outside, inside)
+    print(f"  kernels.stream_ptr equals torch.cuda.current_stream(dev).cuda_stream outside "
+          f"({outside[0]:#x}) and inside a graph capture ({inside[0]:#x}) [{card}]")
+
+
 def count_gather_kernels(card):
-    """The device kernels one call of G10 and of G11 runs on the tool's inputs,
-    by torch.profiler: one each (no PyTorch operation before the launch), or
-    "not measured" where the profiler shows no device event.  Run after every
-    timed phase, as count_gn_kernels."""
+    """The device kernels one call of G1, G9, G10 and G11 runs on the tool's
+    inputs, by torch.profiler: one each (no PyTorch operation before the
+    launch), or "not measured" where the profiler shows no device event.  Run
+    after every timed phase, as count_gn_kernels."""
     from vloam_tpu_torch.tools import gather_experiments as tool
 
-    print(f"== device kernels per G10 / G11 wrapper call (torch.profiler) [{card}]")
+    print(f"== device kernels per G1 / G9 / G10 / G11 wrapper call (torch.profiler) [{card}]")
     for line, names in tool.kernels_per_call():
         print(f"  {line} [{card}]")
         assert names is None or len(names) == 1, line

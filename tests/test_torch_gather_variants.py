@@ -21,6 +21,7 @@ import torch
 from vloam_tpu.ops.image_ops import _slice_patches as jax_slice_patches
 from vloam_tpu.ops.pallas_gather import pad_img as jax_pad_img
 from vloam_tpu_torch.ops import gather_variants as gv
+from vloam_tpu_torch.tools import gather_experiments as tool
 
 H, W, N, P = 100, 300, 64, gv.P
 
@@ -126,19 +127,6 @@ def test_exact_gathers_equal_jax_slice_patches(name, data):
     np.testing.assert_array_equal(call(name, data).numpy(), want)
 
 
-def test_band_buckets(data):
-    """Every bucket holds exactly the keypoints of its (image, 8-row band),
-    in the callers' order."""
-    _, _, _, padded, meta = data
-    order, offsets = gv.band_buckets(torch.tensor(padded), torch.tensor(meta))
-    n_bands = gv.n_bases(padded.shape[1])
-    key = meta[0] * n_bands + meta[2] // 8
-    assert offsets.shape == (2 * n_bands + 1,) and offsets[0] == 0 and offsets[-1] == 2 * N
-    for b in range(2 * n_bands):
-        got = order[offsets[b]:offsets[b + 1]].numpy()
-        np.testing.assert_array_equal(got, np.flatnonzero(key == b))
-
-
 @pytest.mark.parametrize("bad", [(0, -1, 0), (0, 0, 112 - P + 1), (2, 0, 0)])
 def test_window_outside_raises(bad, data):
     _, _, _, padded, meta = data
@@ -203,19 +191,17 @@ def test_tool_and_new_modules_never_import_jax_and_need_a_gpu():
     assert res.stdout == ""
 
 
-# --- the inputs made to break the tensor-core gathers (G10, G11), small -------
+# --- the inputs made to break the exact gathers and the sweeps, small -------
 
 CASE_H, CASE_W, CASE_N = 100, 300, 64
 
 
 @pytest.mark.parametrize("name", ["gather_narrow", "gather_resident", "gather_mma",
                                   "gather_resident_mma"])
-@pytest.mark.parametrize("case", ["one_bucket", "alignments", "magnitudes"])
+@pytest.mark.parametrize("case", tool.CASES)
 def test_exact_gathers_on_cases(case, name):
     """The plain versions of the four exact gathers on small versions of the
     tool's cases, against NumPy and the JAX ``_slice_patches`` of each image."""
-    from vloam_tpu_torch.tools import gather_experiments as tool
-
     imgs, meta = tool.case_inputs(case, CASE_H, CASE_W, CASE_N)
     padded, (ids, cx, cy) = imgs.numpy(), meta.numpy()
     got = getattr(gv, name)(imgs, meta).numpy()
@@ -228,8 +214,6 @@ def test_exact_gathers_on_cases(case, name):
 
 
 def test_cases_cover_what_they_claim():
-    from vloam_tpu_torch.tools import gather_experiments as tool
-
     _, meta = tool.case_inputs("one_bucket", CASE_H, CASE_W, CASE_N)
     ids, cx, cy = meta.numpy()
     assert len(set(ids)) == 1 and len(set(cy // 8)) == 1 and meta.shape[1] == CASE_N
@@ -244,15 +228,69 @@ def test_cases_cover_what_they_claim():
     nz = np.abs(x[x != 0])
     assert 1e-30 <= nz.min() < 1e-28 and 1e28 < nz.max() <= 1e30
     assert (x < 0).any() and not np.signbit(x[x == 0]).any()
+    _, meta = tool.case_inputs("sparse", CASE_H, CASE_W, CASE_N)
+    ids, cx, cy = meta.numpy()
+    last = (CASE_H - P) // 8
+    assert meta.shape[1] == tool.SPARSE_N == 37 and set(ids) == {0, 1}
+    assert set(cy // 8) == {0, last} and cy.max() <= CASE_H - P
+    assert tool.SPARSE_N % 32 != 0 and tool.SPARSE_N % 512 != 0
 
 
 def test_tool_check_cases_on_cpu():
     """The check phase 3c runs on the card, here on the plain versions."""
-    from vloam_tpu_torch.tools import gather_experiments as tool
-
     out = tool.check_cases("cpu", CASE_H, CASE_W, CASE_N)
-    assert [ok for _, ok in out] == [True] * 3
-    assert all("gather_resident_mma True" in line for line, _ in out)
+    assert [ok for _, ok in out] == [True] * len(tool.CASES)
+    assert all("gather_resident True" in line and "gather_resident_mma True" in line
+               for line, _ in out)
+
+
+# the sweep case, small: two padded images of 120 rows have 11 bases each, so
+# their 22 strips split into the batched sweeps' groups of eleven
+SWEEP_SHAPE = (2, 120, 512)
+
+
+@pytest.mark.parametrize("name", tool.SWEEPS)
+def test_sweeps_on_sweep_case(name):
+    """The plain version of each sweep on negative images with planted
+    maxima, against NumPy."""
+    imgs = tool.sweep_case(*SWEEP_SHAPE)
+    padded = imgs.numpy()
+    maxima = np_strip_maxima(padded)
+    want = {"strip_sweep": maxima, "strip_sweep_db": maxima,
+            "strip_sweep_batched": np_sums_in_order(maxima),
+            "strip_sweep_flat": np_sums_in_order(maxima),
+            "whole_image": np.full(gv.REPS, padded.max(), np.float32)}[name]
+    kernel, _ = tool.sweep_calls(imgs)[name]
+    np.testing.assert_array_equal(kernel().numpy(), want)
+    assert gv.LAUNCHES[name] == 0
+
+
+def test_sweep_case_covers_what_it_claims():
+    """Every value is negative, and the strips' maxima lie in every 8-row
+    chunk and in every one of G1's four column slices."""
+    for shape in (SWEEP_SHAPE, (2, 384, 1408)):
+        x = tool.sweep_case(*shape).numpy()
+        assert x.max() < 0
+        chunks, slices = set(), set()
+        for b in range(shape[0]):
+            for i in range(gv.n_bases(shape[1])):
+                r, c = np.unravel_index(x[b, 8 * i:8 * i + gv.P8].argmax(), (gv.P8, shape[2]))
+                chunks.add(int(r) // 8)
+                slices.add(int(c) // (shape[2] // 4))
+        assert chunks == set(range(5)) and slices == set(range(4))
+    np.testing.assert_array_equal(tool.host_strip_maxima(tool.sweep_case(*SWEEP_SHAPE)),
+                                  np_strip_maxima(tool.sweep_case(*SWEEP_SHAPE).numpy()))
+
+
+def test_tool_check_sweep_case_on_cpu():
+    line, ok = tool.check_sweep_case("cpu", *SWEEP_SHAPE)
+    assert ok and "strip_sweep True" in line and "whole_image True" in line
+
+
+def test_resident_shared_memory():
+    """G9's block holds a 40-row strip of the padded width at stride w and
+    its keypoint list: it fits at the tool's 1408 columns, not at 1536."""
+    assert gv.resident_smem(1408) <= gv.SMEM_MAX < gv.resident_smem(1536)
 
 
 def test_resident_mma_shared_memory():
@@ -290,8 +328,6 @@ def bit_sweep():
 def test_three_term_split_is_exact(values):
     """Each term is exact in TF32 (its low 13 mantissa bits are zero) and of
     x's sign, and (hi + mid) + lo gives x back bit for bit."""
-    from vloam_tpu_torch.tools import gather_experiments as tool
-
     if values == "magnitudes":
         imgs, _ = tool.case_inputs("magnitudes", CASE_H, CASE_W, CASE_N)
         x = imgs.numpy().ravel()

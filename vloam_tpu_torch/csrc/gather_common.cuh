@@ -1,13 +1,14 @@
 // Shared by the patch-gather measurement kernels (gather_sweeps.cu,
 // gather_variants.cu): the fixed sizes of the experiment, asynchronous
-// 16-byte copies into shared memory (cp.async), a block-wide maximum, and
-// the decoding of a keypoint's (image id, cx, cy) into the aligned band the
-// TPU formulations fetch.
+// 16-byte copies into shared memory (cp.async), rows copied by the TMA onto
+// an mbarrier, a block-wide maximum, and the decoding of a keypoint's
+// (image id, cx, cy) into the aligned band the TPU formulations fetch.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace gather {
 
@@ -30,6 +31,43 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One thread's whole part of a copy by the TMA: initialise the mbarrier at
+// `bar` for one arrival that expects rows * cols floats, then issue one bulk
+// copy a row, src rows at stride src_ld floats landing at stride dst_ld.
+// Addresses and row bytes must be multiples of 16, the total under 2^20
+// bytes.  Other threads wait on `bar` (mbar_wait) only after a __syncthreads
+// that follows this call.
+__device__ __forceinline__ void tma_rows(float* dst, int dst_ld, const float* src, size_t src_ld,
+                                         int rows, int cols, uint64_t* bar) {
+  const unsigned bar_s = smem_u32(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar_s), "r"(1) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar_s),
+               "r"(rows * cols * 4) : "memory");
+  for (int r = 0; r < rows; ++r) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_u32(dst + r * dst_ld)), "l"(src + r * src_ld), "r"(cols * 4), "r"(bar_s)
+        : "memory");
+  }
+}
+
+// Wait until the phase `parity` of the mbarrier at `bar` has completed.
+__device__ __forceinline__ void mbar_wait(const uint64_t* bar, unsigned parity) {
+  const unsigned bar_s = smem_u32(bar);
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar_s), "r"(parity) : "memory");
+  } while (!done);
 }
 
 __device__ __forceinline__ float max4(float m, const float4 v) {

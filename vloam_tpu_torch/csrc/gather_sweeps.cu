@@ -17,19 +17,27 @@
 //                             the 11 strip maxima added in order;
 //   whole_image               one f32 per repeat: the maximum of both images.
 //
-// What bounds them: bytes.  A sweep reads 88 strips of 40 x 1408 f32
-// (19.8 MB) and writes a few floats; whole_image reads 4.3 MB ten times.
-// Both images fit in the 50 MB L2, so once they are there the repeats and
-// the overlapping strips are served from L2, not from HBM.
+// What bounds them: bytes.  The function's inputs are the two padded images
+// (4.3 MB) and its outputs a few floats, but by its definition a sweep reads
+// 88 strips of 40 x 1408 f32 (19.8 MB) and whole_image the images ten times
+// (43.3 MB).  Both images fit in the 50 MB L2, so once they are there the
+// repeats and the overlapping strips are served from L2, not from HBM.
 //
 // Design.  As on the TPU the data passes through on-chip memory: every strip
 // is staged in shared memory and reduced from there (the reduction reads
 // another thread's element than the one it staged, so the round trip is
 // real).  One strip (225,280 bytes) just fits a block's shared memory, two do
-// not, so the unit in flight is a row chunk of a strip, contiguous in the
-// padded image, and the variants differ in how chunks are kept in flight:
-//   sweep_sync     one 8-row chunk: 16-byte loads, store to shared memory,
-//                  __syncthreads(), reduce, repeat; nothing overlaps;
+// not, so the ring variants keep row chunks of a strip, contiguous in the
+// padded image, in flight, and G1 splits each strip over a cluster:
+//   sweep_sync     a cluster of 4 CTAs a strip, each its 40 x (w/4) column
+//                  slice (56,320 bytes at w = 1408): 16-byte loads, store to
+//                  shared memory, __syncthreads(), reduce; nothing is in
+//                  flight across the barrier, as on the TPU, where the whole
+//                  strip is copied, waited for, then reduced.  352 CTAs, four
+//                  an SM, all resident at once; the four partial maxima meet
+//                  in rank 0's shared memory (distributed shared memory) and
+//                  rank 0 writes the strip's maximum.  It still reads every
+//                  strip in full: 19.8 MB, 4.6x the images;
 //   sweep_ring2    a two-slot cp.async ring of 8-row chunks: chunk i+1 is in
 //                  flight while chunk i is reduced; one block per strip;
 //   sweep_ring11   an eleven-slot ring of 2-row chunks (eleven fit), eleven
@@ -39,38 +47,70 @@
 //   whole_image    no staging: a grid-stride sweep with 16-byte loads, the
 //                  card's plain read rate; blocks meet in an atomic maximum.
 
+#include <cooperative_groups.h>
+
 #include <algorithm>
 
 #include "gather_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace gather;
 
 constexpr int kThreads = 256;
-constexpr int kSyncRows = 8;     // sweep_sync and sweep_ring2: 5 chunks a strip
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlices = 4;       // sweep_sync: CTAs of a strip's cluster, a column slice each
+constexpr int kRingRows = 8;     // sweep_ring2: 5 chunks a strip
 constexpr int kDeepRows = 2;     // sweep_ring11: 20 chunks a strip
 constexpr int kDeep = 11;        // ring depth and strips per block of sweep_ring11
+static_assert(kP8 % kWarps == 0, "sweep_sync: each warp stages the same number of rows");
 
-__global__ void __launch_bounds__(kThreads)
+// G1's shared memory for images w wide: one CTA's 40 x (w / 4) slice.
+int sync_smem(int w) { return kP8 * (w / kSlices) * 4; }
+
+// The cluster's CTAs split the strip by columns; each stages its slice
+// synchronously (warp v copies rows v, v + 8, ..., a 16-byte load a lane and
+// column step, every row's loads issued before its stores) and reduces it.
+__global__ void __cluster_dims__(kSlices, 1, 1) __launch_bounds__(kThreads)
 sweep_sync_kernel(const float* __restrict__ imgs, int h_pad, int w, int n_bases,
                   float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
-  const int strip = blockIdx.x;
+  __shared__ float part[kSlices];   // rank 0's: the slices' maxima, pushed by their CTAs
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  // every CTA of the cluster has started before any pushes into rank 0 (waited
+  // for below, long after it was reached)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int strip = blockIdx.x / kSlices;
   const int b = strip / n_bases, base = 8 * (strip % n_bases);
-  const float4* src =
-      reinterpret_cast<const float4*>(imgs + (static_cast<size_t>(b) * h_pad + base) * w);
+  const int w4 = w / 4, cols4 = w4 / kSlices;   // float4 columns of a row, of a slice
+  const float4* src = reinterpret_cast<const float4*>(
+                          imgs + (static_cast<size_t>(b) * h_pad + base) * w) + rank * cols4;
   float4* buf = reinterpret_cast<float4*>(smem);
-  const int chunk4 = kSyncRows * w / 4;
-  float m = -INFINITY;
-  for (int c = 0; c < kP8 / kSyncRows; ++c) {
-    for (int i = threadIdx.x; i < chunk4; i += kThreads) buf[i] = src[c * chunk4 + i];
-    __syncthreads();
-    for (int i = threadIdx.x; i < chunk4; i += kThreads) m = max4(m, buf[chunk4 - 1 - i]);
-    __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = lane; c < cols4; c += 32) {
+    float4 v[kP8 / kWarps];
+#pragma unroll
+    for (int j = 0; j < kP8 / kWarps; ++j) v[j] = src[(warp + kWarps * j) * w4 + c];
+#pragma unroll
+    for (int j = 0; j < kP8 / kWarps; ++j) buf[(warp + kWarps * j) * cols4 + c] = v[j];
   }
+  __syncthreads();
+  const int n4 = kP8 * cols4;
+  float m = -INFINITY;
+  for (int i = threadIdx.x; i < n4; i += kThreads) m = max4(m, buf[n4 - 1 - i]);
   m = block_max(m);
-  if (threadIdx.x == 0) out[strip] = m;
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (threadIdx.x == 0) *cluster.map_shared_rank(&part[rank], 0) = m;
+  cluster.sync();   // the pushes have landed
+  if (rank == 0 && threadIdx.x == 0) {
+    float s = part[0];
+#pragma unroll
+    for (int r = 1; r < kSlices; ++r) s = fmaxf(s, part[r]);
+    out[strip] = s;
+  }
 }
 
 // A ring of DEPTH slots of ROWS-row chunks; the block walks strips_per_block
@@ -135,13 +175,6 @@ whole_image_kernel(const float4* __restrict__ img, int n4, float* __restrict__ o
   if (threadIdx.x == 0) atomic_max_float(out + blockIdx.y, m);
 }
 
-template <typename K>
-int allow_smem(K kernel, int bytes) {
-  if (bytes > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
 template <int DEPTH, int ROWS, bool FLAT>
 int launch_ring(const float* src, int n_img, int h_pad, int w, int strips_per_block, float* out,
                 void* stream) {
@@ -149,37 +182,54 @@ int launch_ring(const float* src, int n_img, int h_pad, int w, int strips_per_bl
   const int strips = n_img * n_bases;
   if (w % 4 != 0 || strips % strips_per_block != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = DEPTH * ROWS * w * 4;
-  auto kernel = sweep_ring_kernel<DEPTH, ROWS, FLAT>;
-  const int rc = allow_smem(kernel, bytes);
-  if (rc != 0) return rc;
-  kernel<<<strips / strips_per_block, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      src, h_pad, w, n_bases, strips_per_block, out);
+  if (bytes > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
+  sweep_ring_kernel<DEPTH, ROWS, FLAT>
+      <<<strips / strips_per_block, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+          src, h_pad, w, n_bases, strips_per_block, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Once, when the library is loaded (kernels.lib() calls it): every staged
+// sweep may take all of a block's shared memory beside its static part
+// (block_max's).  No launch sets a kernel attribute.
+extern "C" int vloam_sweeps_setup() {
+  auto allow = [](auto kernel) {
+    cudaFuncAttributes attr;
+    cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
+    if (rc == cudaSuccess)
+      rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kMaxDynamicSmem - static_cast<int>(attr.sharedSizeBytes));
+    return static_cast<int>(rc);
+  };
+  int rc = allow(sweep_sync_kernel);
+  if (rc == 0) rc = allow(sweep_ring_kernel<2, kRingRows, false>);
+  if (rc == 0) rc = allow(sweep_ring_kernel<kDeep, kDeepRows, false>);
+  if (rc == 0) rc = allow(sweep_ring_kernel<kDeep, kDeepRows, true>);
+  return rc;
+}
+
 // All sweeps: imgs (n_img, h_pad, w) row-major f32, the padded images (w a
-// multiple of 4, so every row starts on 16 bytes); n_bases = (h_pad-40)/8 + 1
-// strips per image.  Each returns the first CUDA error of its set-up and launch.
+// multiple of 4, so every row starts on 16 bytes; G1 wants a multiple of 16,
+// so that each of its four slices does); n_bases = (h_pad-40)/8 + 1 strips
+// per image.  Each returns the first CUDA error of its launch.
 
 // out: (n_img * n_bases,) f32.
 extern "C" int vloam_sweep_sync(const float* imgs, int n_img, int h_pad, int w, float* out,
                                 void* stream) {
-  if (w % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_bases = (h_pad - gather::kP8) / 8 + 1;
-  const int bytes = kSyncRows * w * 4;
-  const int rc = allow_smem(sweep_sync_kernel, bytes);
-  if (rc != 0) return rc;
-  sweep_sync_kernel<<<n_img * n_bases, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      imgs, h_pad, w, n_bases, out);
+  if (w % (4 * kSlices) != 0 || sync_smem(w) > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_bases = (h_pad - kP8) / 8 + 1;
+  sweep_sync_kernel<<<n_img * n_bases * kSlices, kThreads, sync_smem(w),
+                      static_cast<cudaStream_t>(stream)>>>(imgs, h_pad, w, n_bases, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out: (n_img * n_bases,) f32.
 extern "C" int vloam_sweep_ring2(const float* imgs, int n_img, int h_pad, int w, float* out,
                                  void* stream) {
-  return launch_ring<2, kSyncRows, false>(imgs, n_img, h_pad, w, 1, out, stream);
+  return launch_ring<2, kRingRows, false>(imgs, n_img, h_pad, w, 1, out, stream);
 }
 
 // out: (n_img * n_bases / 11,) f32; n_img * n_bases must be a multiple of 11.

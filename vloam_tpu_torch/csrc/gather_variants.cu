@@ -30,12 +30,24 @@
 //   compact_only     compaction only: one band per block of 32 keypoints
 //                    (that of the block's first keypoint), and every
 //                    keypoint's window is cut from it at its own (dy, dx).
-//   gather_resident  the exact gather with each image byte fetched once: the
-//                    caller buckets the keypoints by (image, 8-row band);
-//                    one block per bucket brings the 40-row full-width strip
-//                    (225,280 bytes, all of a block's shared memory) in once
-//                    and a warp per keypoint writes its window from there.
-//                    An empty bucket's block returns at once.
+//   gather_resident  (G9, for gather_vmem_resident) the exact gather from a
+//                    strip staged once, in one launch with no sort.  The TPU
+//                    kernel holds both images in VMEM; 227 KB of shared
+//                    memory holds one 40-row strip, so one block per (image,
+//                    8-row band) starts its strip's copy by the TMA (one bulk
+//                    copy a row onto an mbarrier) and, while it is in flight,
+//                    finds its own keypoints in meta: each warp takes a share
+//                    (three passes of 512 loaded at once) and reserves slots
+//                    in a list with one shared atomicAdd of its ballot's
+//                    popc, so a round of 1536 keypoints costs one barrier;
+//                    the list (1776 slots beside the 225,280-byte strip at
+//                    stride w) is drained before it could overflow, so a
+//                    bucket of any size fits.  Then a warp a keypoint copies
+//                    its window from the strip, a row a store.  Bound: each
+//                    image row is staged by five overlapping strips, ~19.8 MB
+//                    through L2, and every block reads all of meta.  An empty
+//                    bucket writes nothing and lets its copy land before it
+//                    exits.
 //   gather_mma       (G10, for gather_mxu) the exact gather, the column shift
 //                    on the tensor cores (mma_window below).  The TPU kernel
 //                    fetches a (40, 256) band a keypoint because its unit of
@@ -98,16 +110,6 @@ __device__ __forceinline__ void stage_band(float* band, const float* __restrict_
   __syncthreads();
 }
 
-// The 40-row full-width strip from row `row0` of one image into shared memory.
-__device__ __forceinline__ void stage_strip(float* strip, const float* __restrict__ img, int w,
-                                            int row0) {
-  const float* src = img + static_cast<size_t>(row0) * w;
-  for (int i = threadIdx.x; i < kP8 * w / 4; i += blockDim.x) cp_async16(strip + 4 * i, src + 4 * i);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kThreads)
 gather_narrow_kernel(const float* __restrict__ imgs, int n_img, int h_pad, int w,
                      const int* __restrict__ meta, int n2, float* __restrict__ out) {
@@ -156,28 +158,89 @@ compact_only_kernel(const float* __restrict__ imgs, int n_img, int h_pad, int w,
   }
 }
 
-// order: (n2,) keypoint indices sorted by bucket = b * n_bands + cy / 8;
-// offsets: (n_img * n_bands + 1,) where each bucket starts in `order`.
+// --- G9: one launch that stages a strip and finds its own keypoints ---------------
+
+constexpr int kResidentWarps = kResidentThreads / 32;
+constexpr int kScanPasses = 3;                            // passes of 512 keypoints a round
+constexpr int kRound = kScanPasses * kResidentThreads;   // keypoints scanned between barriers
+constexpr int kResidentList = 1776;                       // keypoint indices G9 holds at once
+
+// G9's dynamic shared memory: the strip (40 rows at stride w), its mbarrier,
+// three round counters (16 bytes each with padding), the keypoint list.
+int resident_smem(int w) { return kP8 * w * 4 + 32 + 4 * kResidentList; }
+
 __global__ void __launch_bounds__(kResidentThreads)
-gather_resident_kernel(const float* __restrict__ imgs, int h_pad, int w,
-                       const int* __restrict__ meta, int n2,
-                       const long long* __restrict__ order,
-                       const long long* __restrict__ offsets, int n_bands,
-                       float* __restrict__ out) {
+gather_resident_kernel(const float* __restrict__ imgs, int n_img, int h_pad, int w,
+                       const int* __restrict__ meta, int n2, float* __restrict__ out) {
   extern __shared__ __align__(16) float strip[];
-  const int start = static_cast<int>(offsets[blockIdx.x]);
-  const int end = static_cast<int>(offsets[blockIdx.x + 1]);
-  if (start == end) return;
-  const int b = blockIdx.x / n_bands, row0 = 8 * (blockIdx.x % n_bands);
-  stage_strip(strip, imgs + static_cast<size_t>(b) * h_pad * w, w, row0);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(strip + kP8 * w);
+  int* count = reinterpret_cast<int*>(bar + 2);   // round r adds into count[r % 3]
+  int* list = count + 4;
+  const int n_bands = (h_pad - kP8) / 8 + 1;
+  const int b = blockIdx.x / n_bands, band = blockIdx.x % n_bands, row0 = 8 * band;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = start + warp; i < end; i += kResidentThreads / 32) {
-    const int k = static_cast<int>(order[i]);
-    const int cx = meta[n2 + k], dy = meta[2 * n2 + k] - row0;
-    assert(meta[k] == b && dy >= 0 && dy < 8 && cx >= 0 && cx + kP <= w);
-    float* dst = out + static_cast<size_t>(k) * kP * kP;
-    for (int r = 0; r < kP; ++r) dst[r * kP + lane] = strip[(dy + r) * w + cx + lane];
+
+  if (threadIdx.x == 0) {
+    count[0] = 0;
+    tma_rows(strip, w, imgs + (static_cast<size_t>(b) * h_pad + row0) * w, w, kP8, w, bar);
   }
+
+  // Rounds of kRound keypoints: every thread loads its three passes' meta at
+  // once; each warp's matches of a pass take consecutive slots of `list`,
+  // reserved by one atomicAdd; one barrier ends the round, after which every
+  // thread reads the round's count.  Thread 0 clears the counter of round r+1
+  // before that barrier: it was last read after round r-2's, which every
+  // thread has passed.  The list is drained before a round could overflow it.
+  bool staged = false;
+  int n_list = 0;   // the same in every thread
+  for (int base = 0, round = 0; base < n2; base += kRound, ++round) {
+    int kbs[kScanPasses], cys[kScanPasses];
+#pragma unroll
+    for (int j = 0; j < kScanPasses; ++j) {
+      const int k = base + j * kResidentThreads + threadIdx.x;
+      kbs[j] = k < n2 ? meta[k] : -1;
+      cys[j] = k < n2 ? meta[2 * n2 + k] : 0;
+      if (blockIdx.x == 0 && k < n2) {   // every keypoint lies in some bucket
+        const int cx = meta[n2 + k];
+        assert(kbs[j] >= 0 && kbs[j] < n_img && cys[j] >= 0 && (cys[j] >> 3) < n_bands &&
+               cx >= 0 && cx + kP <= w);
+      }
+    }
+    if (round == 0) __syncthreads();   // count[0] is cleared and the mbarrier initialised
+#pragma unroll
+    for (int j = 0; j < kScanPasses; ++j) {
+      const int pass = base + j * kResidentThreads;
+      if (pass >= n2) break;
+      const bool mine = kbs[j] == b && (cys[j] >> 3) == band;
+      const unsigned ballot = __ballot_sync(0xffffffffu, mine);
+      if (ballot != 0) {   // the same in every lane
+        int slot = 0;
+        if (lane == 0) slot = atomicAdd(&count[round % 3], __popc(ballot));
+        slot = n_list + __shfl_sync(0xffffffffu, slot, 0);
+        if (mine) list[slot + __popc(ballot & ((1u << lane) - 1u))] = pass + threadIdx.x;
+      }
+    }
+    if (threadIdx.x == 0) count[(round + 1) % 3] = 0;
+    __syncthreads();   // the round's slots are written and counted
+    n_list += count[round % 3];
+    const bool last = base + kRound >= n2;
+    if (n_list > 0 && (last || n_list > kResidentList - kRound)) {
+      if (!staged) {
+        mbar_wait(bar, 0);
+        staged = true;
+      }
+      for (int i = warp; i < n_list; i += kResidentWarps) {
+        const int k = list[i];
+        const float* src = strip + (meta[2 * n2 + k] - row0) * w + meta[n2 + k];
+        float* dst = out + static_cast<size_t>(k) * kP * kP;
+#pragma unroll 8
+        for (int r = 0; r < kP; ++r) dst[r * kP + lane] = src[r * w + lane];
+      }
+      if (!last) __syncthreads();   // the list is read before the next round rewrites it
+      n_list = 0;
+    }
+  }
+  if (!staged) mbar_wait(bar, 0);   // an empty bucket lets its copy land before it exits
 }
 
 // --- the column shift on the tensor cores (G10, G11) ---------------------------
@@ -295,7 +358,7 @@ constexpr int kSlabCols = kP + 8;                 // from cx & ~7: the window an
 constexpr int kSlabFloats = kP * kSlabCols;       // row stride 40, swizzled (see Banks above)
 constexpr int kMmaSmem = kMmaWarps * 2 * kSlabFloats * 4;   // two slabs a warp: 81,920 bytes
 
-int g_sm_count = 0;   // the card's SMs, set by vloam_gather_mma_setup
+int g_sm_count = 0;   // the card's SMs, set by vloam_gather_variants_setup
 
 // This lane's share of the 32 x 40 copy of keypoint a's rows into a slab;
 // row r's 16-byte chunk c lands at chunk c ^ ((r >> 2) & 1).
@@ -342,7 +405,6 @@ gather_mma_kernel(const float* __restrict__ imgs, int n_img, int h_pad, int w,
 
 // --- G11: one launch that stages a strip and finds its own keypoints ------------------
 
-constexpr int kResidentWarps = kResidentThreads / 32;
 constexpr int kListCap = 1024;   // keypoint indices a block holds at once
 constexpr int kScanDepth = 4;    // passes of 512 keypoints whose meta a thread loads at once
 
@@ -350,20 +412,6 @@ constexpr int kScanDepth = 4;    // passes of 512 keypoints whose meta a thread 
 // mbarrier (16 bytes with padding), the warps' counts, the keypoint list.
 int resident_mma_smem(int w) {
   return kP8 * (w + 4) * 4 + 16 + 4 * kResidentWarps + 4 * kListCap;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
 }
 
 __global__ void __launch_bounds__(kResidentThreads)
@@ -377,22 +425,10 @@ gather_resident_mma_kernel(const float* __restrict__ imgs, int n_img, int h_pad,
   const int n_bands = (h_pad - kP8) / 8 + 1;
   const int b = blockIdx.x / n_bands, band = blockIdx.x % n_bands, row0 = 8 * band;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned bar_s = smem_u32(bar);
 
   // the strip's copy first: one bulk copy a row, all completing on one mbarrier
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar_s), "r"(1) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar_s),
-                 "r"(kP8 * w * 4) : "memory");
-    const float* src = imgs + (static_cast<size_t>(b) * h_pad + row0) * w;
-    for (int r = 0; r < kP8; ++r) {
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-          ::"r"(smem_u32(strip + r * ld)), "l"(src + static_cast<size_t>(r) * w), "r"(w * 4),
-          "r"(bar_s) : "memory");
-    }
-  }
+  if (threadIdx.x == 0)
+    tma_rows(strip, ld, imgs + (static_cast<size_t>(b) * h_pad + row0) * w, w, kP8, w, bar);
 
   // then this bucket's keypoints, found in meta while the strip is in flight:
   // the meta of kScanDepth passes of 512 keypoints loaded at once, then each
@@ -431,7 +467,7 @@ gather_resident_mma_kernel(const float* __restrict__ imgs, int n_img, int h_pad,
       __syncthreads();   // the list is written; warp_n may be rewritten
       if (n_list > 0 && (n_list > kListCap - kResidentThreads || pass + kResidentThreads >= n2)) {
         if (!staged) {
-          mbar_wait(bar_s, 0);
+          mbar_wait(bar, 0);
           staged = true;
         }
         for (int i = warp; i < n_list; i += kResidentWarps) {
@@ -445,29 +481,10 @@ gather_resident_mma_kernel(const float* __restrict__ imgs, int n_img, int h_pad,
       }
     }
   }
-  if (!staged) mbar_wait(bar_s, 0);   // an empty bucket lets its copy land before it exits
+  if (!staged) mbar_wait(bar, 0);   // an empty bucket lets its copy land before it exits
 }
 
 using BandKernel = void (*)(const float*, int, int, int, const int*, int, float*);
-using BucketKernel = void (*)(const float*, int, int, const int*, int, const long long*,
-                              const long long*, int, float*);
-
-int launch_bucketed(BucketKernel kernel, const float* imgs, int n_img, int h_pad, int w,
-                    const int* meta, int n2, const long long* order, const long long* offsets,
-                    float* out, void* stream) {
-  const int bytes = kP8 * w * 4;
-  if (w % 4 != 0 || bytes > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-  if (rc != 0) return rc;
-  const int n_bands = (h_pad - kP8) / 8 + 1;
-  if (n2 > 0) {
-    kernel<<<n_img * n_bands, kResidentThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-        imgs, h_pad, w, meta, n2, order, offsets, n_bands, out);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 int launch_band(BandKernel kernel, int blocks, int threads, const float* imgs, int n_img,
                 int h_pad, int w, const int* meta, int n2, float* out, void* stream,
                 int smem = 0) {
@@ -504,23 +521,17 @@ extern "C" int vloam_gather_compact_only(const float* imgs, int n_img, int h_pad
                      meta, n2, out, stream);
 }
 
-// order (n2,) int64 and offsets (n_img * n_bands + 1,) int64 as described at
-// gather_resident_kernel; n_bands = (h_pad - 40) / 8 + 1; 40 * w * 4 bytes of
-// shared memory must fit a block.
-extern "C" int vloam_gather_resident(const float* imgs, int n_img, int h_pad, int w,
-                                     const int* meta, int n2, const long long* order,
-                                     const long long* offsets, float* out, void* stream) {
-  return launch_bucketed(gather_resident_kernel, imgs, n_img, h_pad, w, meta, n2, order, offsets,
-                         out, stream);
-}
-
-// Once, before the first launch of G10 or G11 (kernels.lib() calls it): their
-// shared-memory limits and the SM count that sizes G10's grid.
-extern "C" int vloam_gather_mma_setup() {
+// Once, when the library is loaded (kernels.lib() calls it): the
+// shared-memory limits of G9, G10 and G11, and the SM count that sizes G10's
+// grid.  No launch sets a kernel attribute.
+extern "C" int vloam_gather_variants_setup() {
   int dev = 0;
   int rc = static_cast<int>(cudaGetDevice(&dev));
   if (rc == 0)
     rc = static_cast<int>(cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, dev));
+  if (rc == 0)
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        gather_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem));
   if (rc == 0)
     rc = static_cast<int>(cudaFuncSetAttribute(
         gather_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmem));
@@ -528,6 +539,16 @@ extern "C" int vloam_gather_mma_setup() {
     rc = static_cast<int>(cudaFuncSetAttribute(
         gather_resident_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem));
   return rc;
+}
+
+// n_bands = (h_pad - 40) / 8 + 1 blocks an image; resident_smem(w) bytes of
+// shared memory must fit a block.
+extern "C" int vloam_gather_resident(const float* imgs, int n_img, int h_pad, int w,
+                                     const int* meta, int n2, float* out, void* stream) {
+  if (resident_smem(w) > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_bands = (h_pad - kP8) / 8 + 1;
+  return launch_band(gather_resident_kernel, n2 > 0 ? n_img * n_bands : 0, kResidentThreads, imgs,
+                     n_img, h_pad, w, meta, n2, out, stream, resident_smem(w));
 }
 
 extern "C" int vloam_gather_mma(const float* imgs, int n_img, int h_pad, int w, const int* meta,

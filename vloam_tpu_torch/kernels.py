@@ -8,7 +8,9 @@ sources, the shared headers and the flags, so an edit rebuilds and an
 unchanged tree reuses the library.  It is loaded with ``ctypes``; tensors pass as ``data_ptr()``
 integers and kernels run on PyTorch's current stream.  Each C entry point
 returns ``cudaGetLastError()`` after its launch and ``check`` raises on a
-nonzero code.
+nonzero code.  Kernel attributes (dynamic shared memory above 48 KB) are set
+once, by the ``vloam_*_setup`` functions that ``lib()`` calls when it loads
+the library, never inside a launch or a graph capture.
 
 Nothing here runs at import: the CPU test suite imports every module on a
 machine without ``nvcc``.
@@ -60,7 +62,8 @@ _SIGNATURES = {
     "vloam_gn_vo": [_P, _L] * 6 + [_I, _I, _F, _F, _P, _P],
     "vloam_gn_lidar_setup": [],
     "vloam_gn_vo_setup": [],
-    "vloam_gather_mma_setup": [],
+    "vloam_sweeps_setup": [],
+    "vloam_gather_variants_setup": [],
     "vloam_gather_patches": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "vloam_gather_patches_stack": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
     "vloam_whole_image": [_P, _I, _I, _P, _P],
@@ -69,14 +72,15 @@ _SIGNATURES = {
 for _name in ("vloam_sweep_sync", "vloam_sweep_ring2", "vloam_sweep_ring11",
               "vloam_sweep_ring11_flat"):
     _SIGNATURES[_name] = [_P, _I, _I, _I, _P, _P]
-# the gather formulations: (imgs, n_img, h_pad, w, meta, n2, out, stream), the
-# bucketed one (G9) with (order, offsets) before out
+# the gather formulations: (imgs, n_img, h_pad, w, meta, n2, out, stream)
 for _name in ("vloam_gather_narrow", "vloam_gather_dma_only", "vloam_gather_compact_only",
-              "vloam_gather_mma", "vloam_gather_resident_mma"):
+              "vloam_gather_resident", "vloam_gather_mma", "vloam_gather_resident_mma"):
     _SIGNATURES[_name] = [_P, _I, _I, _I, _P, _I, _P, _P]
-_SIGNATURES["vloam_gather_resident"] = [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P]
+# run once each when the library is loaded
+SETUPS = tuple(name for name in _SIGNATURES if name.endswith("_setup"))
 
 _lib = None
+_entries: dict = {}
 
 
 def nvcc_path() -> str:
@@ -140,16 +144,27 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        # kernel attributes (dynamic shared memory above 48 KB) are set once
-        # here, never inside a launch or a capture
-        for setup in ("vloam_gn_lidar_setup", "vloam_gn_vo_setup", "vloam_gather_mma_setup"):
-            check(getattr(handle, setup)(), setup)
+            _entries[name] = fn
+        for setup in SETUPS:
+            check(_entries[setup](), setup)
         _lib = handle
     return _lib
 
 
+def entry(name: str):
+    """The bound C function ``name`` (loading the library at first use)."""
+    if _lib is None:
+        lib()
+    return _entries[name]
+
+
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of PyTorch's current stream on ``device``: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, also inside a
+    graph capture, without building a Stream object."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def check(rc: int, name: str) -> None:

@@ -5,7 +5,7 @@ They ask what limits the patch gather of ``ops/patch_gather`` and are run by
 ``vloam_tpu_torch.tools.gather_experiments``, not by the frame step:
 
   ====  ======================  ===========================================
-  G1    ``strip_sweep``         read every 40-row strip, one chunk at a time
+  G1    ``strip_sweep``         read every 40-row strip, synchronous staging
   G2    ``strip_sweep_db``      ... the next chunk in flight (2 slots)
   G3    ``strip_sweep_batched`` ... eleven chunks in flight, 11 strips a block
   G4    ``strip_sweep_flat``    G3 on the (n_img * H_pad, W_pad) 2-D view
@@ -13,7 +13,7 @@ They ask what limits the patch gather of ``ops/patch_gather`` and are run by
   G6    ``gather_narrow``       exact gather from the 128-byte lines it needs
   G7    ``dma_only``            transport only: the band's raw corner
   G8    ``compact_only``        compaction only: one band per 32 keypoints
-  G9    ``gather_resident``     exact gather from a strip staged once
+  G9    ``gather_resident``     exact gather from a strip staged once, one launch
   G10   ``gather_mma``          exact gather, column shift on tensor cores
   G11   ``gather_resident_mma`` G9's strip feeding G10's shift, one launch
   ====  ======================  ===========================================
@@ -157,15 +157,18 @@ def _sweep(name, entry, imgs, n_img, h_pad, per_block):
     if strips % per_block != 0:
         raise ValueError(f"{name}: {strips} strips do not split into groups of {per_block}")
     out = torch.empty((strips // per_block,), dtype=torch.float32, device=imgs.device)
-    rc = getattr(kernels.lib(), entry)(imgs.data_ptr(), n_img, h_pad, imgs.shape[-1],
-                                       out.data_ptr(), kernels.stream_ptr(imgs.device))
+    rc = kernels.entry(entry)(imgs.data_ptr(), n_img, h_pad, imgs.shape[-1], out.data_ptr(),
+                              kernels.stream_ptr(imgs.device))
     kernels.check(rc, name)
     LAUNCHES[name] += 1
     return out
 
 
 def strip_sweep(imgs):
-    """G1: (n_img, H_pad, W_pad) -> (n_img * n_bases,) strip maxima; synchronous staging."""
+    """G1: (n_img, H_pad, W_pad) -> (n_img * n_bases,) strip maxima.  Every
+    strip is read in full with synchronous staging, split by columns over a
+    cluster of four blocks whose partial maxima meet in distributed shared
+    memory."""
     if imgs.device.type == "cpu":
         return strip_sweep_reference(imgs)
     _check_imgs("strip_sweep", imgs, 3)
@@ -206,8 +209,8 @@ def whole_image(img2d, reps: int = REPS):
         return whole_image_reference(img2d, reps)
     _check_imgs("whole_image", img2d, 2)
     out = torch.full((reps,), float("-inf"), dtype=torch.float32, device=img2d.device)
-    rc = kernels.lib().vloam_whole_image(img2d.data_ptr(), img2d.numel(), reps, out.data_ptr(),
-                                         kernels.stream_ptr(img2d.device))
+    rc = kernels.entry("vloam_whole_image")(img2d.data_ptr(), img2d.numel(), reps,
+                                            out.data_ptr(), kernels.stream_ptr(img2d.device))
     kernels.check(rc, "whole_image")
     LAUNCHES["whole_image"] += 1
     return out
@@ -221,13 +224,12 @@ def _check_meta(name, imgs, meta):
         raise ValueError(f"{name}: meta must be contiguous (3, N) int32")
 
 
-def _gather(name, entry, imgs, meta, *extra):
+def _gather(name, entry, imgs, meta):
     n_img, h_pad, w = imgs.shape
     n2 = meta.shape[1]
     out = torch.empty((n2, P, P), dtype=torch.float32, device=imgs.device)
-    rc = getattr(kernels.lib(), entry)(
-        imgs.data_ptr(), n_img, h_pad, w, meta.data_ptr(), n2, *(t.data_ptr() for t in extra),
-        out.data_ptr(), kernels.stream_ptr(imgs.device))
+    rc = kernels.entry(entry)(imgs.data_ptr(), n_img, h_pad, w, meta.data_ptr(), n2,
+                              out.data_ptr(), kernels.stream_ptr(imgs.device))
     kernels.check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -259,36 +261,25 @@ def compact_only(imgs, meta):
     return _gather("compact_only", "vloam_gather_compact_only", imgs, meta)
 
 
-def band_buckets(imgs, meta):
-    """Keypoints bucketed by (image, 8-row band): (order (N,) int64, the
-    keypoint indices sorted by bucket; offsets (n_img * n_bands + 1,) int64,
-    where each bucket starts in ``order``).  A stable sort and a
-    ``searchsorted``: nothing is read back from the device."""
-    n_img, h_pad, _ = imgs.shape
-    bands = n_bases(h_pad)
-    key = meta[0].to(torch.int64) * bands + (meta[2] // 8).to(torch.int64)
-    skey, order = torch.sort(key, stable=True)
-    offsets = torch.searchsorted(
-        skey, torch.arange(n_img * bands + 1, dtype=torch.int64, device=meta.device))
-    return order.contiguous(), offsets.contiguous()
-
-
-def _resident(imgs, meta, buckets=None):
-    """The launch of G9; ``buckets`` takes a ready ``band_buckets(imgs, meta)``."""
-    _check_meta("gather_resident", imgs, meta)
-    if P8 * imgs.shape[2] * 4 > SMEM_MAX:
-        raise ValueError(f"gather_resident: a 40-row strip of {imgs.shape[2]} columns does not "
-                         "fit a block's shared memory")
-    order, offsets = band_buckets(imgs, meta) if buckets is None else buckets
-    return _gather("gather_resident", "vloam_gather_resident", imgs, meta, order, offsets)
+def resident_smem(w: int) -> int:
+    """Bytes of shared memory one G9 block takes for images ``w`` wide: the
+    40-row strip at row stride w, its barrier, three round counters and a list
+    of 1776 keypoint indices (``resident_smem`` in ``csrc/gather_variants.cu``)."""
+    return P8 * w * 4 + 32 + 4 * 1776
 
 
 def gather_resident(imgs, meta):
-    """G9: the exact gather; each (image, band) strip is staged once and all
-    its windows are written from there."""
+    """G9: the exact gather in one launch.  One block per (image, 8-row band)
+    stages its 40-row strip once with the TMA, finds its own keypoints in
+    ``meta`` while the copy is in flight, and copies their windows from the
+    strip; no sort, no PyTorch operation before the launch."""
     if imgs.device.type == "cpu":
         return gather_resident_reference(imgs, meta)
-    return _resident(imgs, meta)
+    _check_meta("gather_resident", imgs, meta)
+    if resident_smem(imgs.shape[2]) > SMEM_MAX:
+        raise ValueError(f"gather_resident: a 40-row strip of {imgs.shape[2]} columns does not "
+                         "fit a block's shared memory")
+    return _gather("gather_resident", "vloam_gather_resident", imgs, meta)
 
 
 def gather_mma(imgs, meta):

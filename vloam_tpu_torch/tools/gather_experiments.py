@@ -17,15 +17,18 @@ One line per variant: the median ms of one call by CUDA events (at these
 sizes mostly the launch path: an empty kernel times about the same), the
 device ms per call when 20 calls are captured in one CUDA graph and replayed
 (no Python and no launch path in it: the number to compare formulations by),
-GB/s of the device time for the sweeps (all repeats after the first find the
-4.3 MB of images in the L2 cache, so this is an L2 rate, not an HBM rate),
-the plain version's ms, the ms of the one PyTorch call that computes the
-same function where there is one (``library``: ``amax`` over an ``unfold``
-or ``expand`` view for G1, G2 and G5, one index call on an ``unfold`` view
-for the exact gathers), ``correct=``; then the four exact gathers and their
-plain version on three inputs made to break the tensor-core ones (``CASES``),
-the device kernels one call of G10 and of G11 runs (torch.profiler), and the
-card's name and power limit.  It needs a GPU and exits nonzero without one.
+GB/s of the device time for the sweeps (what they stream: all repeats after
+the first find the 4.3 MB of images in the L2 cache, so this is an L2 rate,
+not an HBM rate), the plain version's ms, the ms of the one PyTorch call
+that computes the same function where there is one (``library``: ``amax``
+over an ``unfold`` or ``expand`` view for G1, G2 and G5, one index call on an
+``unfold`` view for the exact gathers), ``correct=``; then the four exact
+gathers and their plain version on inputs made to break them (``CASES``),
+the host microseconds of the steps of one G1 call beside one ``amax``
+call's, the five sweeps on negative images with planted maxima
+(``sweep_case``), the device kernels one call of G1, G9, G10 and G11 runs
+(torch.profiler), and the card's name and power limit.  It needs a GPU and
+exits nonzero without one.
 """
 
 from __future__ import annotations
@@ -124,11 +127,11 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
     replayed CUDA graph; None for the plain gather, which reads the device),
     plain_ms, library_ms and library_device_ms (the one PyTorch call that
     computes the same function, itself held equal to the plain version, timed
-    both ways; None where there is none), nbytes (what the function must move: inputs once, outputs once; a
-    sweep's input is every strip it reads, so its bound is an HBM time for
-    bytes that, overlapping and repeated, mostly come from L2), sweep_bytes
-    (what a sweep reads, for its GB/s; None for the gathers), max_abs_err
-    (kernel against plain), correct."""
+    both ways; None where there is none), nbytes (what the function must
+    move: inputs once, outputs once; for a sweep the padded images and its
+    few floats, though it reads 4.6x (G1-G4) or 10x (G5) those bytes),
+    sweep_bytes (what a sweep reads, for its GB/s; None for the gathers),
+    max_abs_err (kernel against plain), correct."""
     from vloam_tpu_torch.ops import gather_variants as gv
     from vloam_tpu_torch.ops import patch_gather
 
@@ -174,9 +177,9 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
         # then a sum per eleven strips are two reductions, so no one call.
         library = (lambda: imgs.unfold(1, gv.P8, 8).amax(dim=(2, 3))) if n_out == n_strips else None
         add(name, LABELS[name], lambda k=kernel, a=args: k(*a), lambda p=plain, a=args: p(*a),
-            sweep_bytes + 4 * n_out, sweep_bytes, library)
+            img_bytes + 4 * n_out, sweep_bytes, library)
     add("whole_image", LABELS["whole_image"], lambda: gv.whole_image(img2d),
-        lambda: gv.whole_image_reference(img2d), gv.REPS * img_bytes + 4 * gv.REPS,
+        lambda: gv.whole_image_reference(img2d), img_bytes + 4 * gv.REPS,
         gv.REPS * img_bytes, lambda: img2d.expand(gv.REPS, -1, -1).amax(dim=(1, 2)))
 
     # G6, G9, G10, G11 are the shipped gather's function, whose inputs are the
@@ -195,34 +198,35 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
         add(name, LABELS[name], lambda k=kernel: k(imgs, meta), lambda p=plain: p(imgs, meta),
             pair_bytes if exact else padded_bytes,
             library=(lambda: windows[ids, cy, cx]) if exact else None)
-    # G9 again with its buckets made beforehand: the kernel alone (G11 finds its own)
-    buckets = gv.band_buckets(imgs, meta)
-    alone = lambda: gv._resident(imgs, meta, buckets)  # noqa: E731
-    next(r for r in rows if r["name"] == "gather_resident").update(
-        kernel_only_ms=time_ms(alone, runs), kernel_only_device_ms=graph_ms(alone))
 
     add("plain_gather", "C plain PyTorch index gather", plain_pair, plain_pair, pair_bytes)
     return rows
 
 
-CASES = ("one_bucket", "alignments", "magnitudes")
+CASES = ("one_bucket", "alignments", "magnitudes", "sparse")
 EXACT = ("gather_narrow", "gather_resident", "gather_mma", "gather_resident_mma")
+SPARSE_N = 37   # keypoints of the sparse case: a multiple of neither 32 nor 512
 
 
 def case_inputs(case: str, H: int, W: int, n: int, device="cpu"):
-    """Inputs made to break the tensor-core gathers, from NumPy's
+    """Inputs made to break the exact gathers, from NumPy's
     ``default_rng(1)``: (imgs, the two H x W images padded by ``pad_img``;
     meta (3, m) int32 of legal corners).
 
-      one_bucket  n keypoints in one (image, 8-row band) bucket, so that G11
-                  drains its keypoint list more than once when n > 1024;
+      one_bucket  n keypoints in one (image, 8-row band) bucket, so that G9
+                  and G11 drain their keypoint lists more than once when n
+                  exceeds them;
       alignments  every cx % 8 in 0..7 and cx % 128 in {0, 1, 96, 127}, each
                   at every cy % 8 in both images, max(1, n // 80) times, then
                   the 64 windows of each image that touch its right and bottom
                   edges, and three corners; shuffled;
       magnitudes  n random corners of images whose values are
                   sign * 10**U(-30, 30) of both signs, one in twenty +0.0
-                  (-0.0 comes back as +0.0 from the tensor cores).
+                  (-0.0 comes back as +0.0 from the tensor cores);
+      sparse      37 keypoints (SPARSE_N, whatever n is), all in the first and
+                  the last band of legal corners of each image, so that
+                  almost every block of G9 and G11 finds an empty bucket
+                  while its copy is in flight.
     """
     from vloam_tpu_torch.ops import gather_variants as gv
 
@@ -256,6 +260,12 @@ def case_inputs(case: str, H: int, W: int, n: int, device="cpu"):
     elif case == "magnitudes":
         ids = rng.integers(0, 2, n)
         cols, rows = rng.integers(0, W - P + 1, n), rng.integers(0, H - P + 1, n)
+    elif case == "sparse":
+        last = (H - P) // 8   # the band of the lowest legal corner
+        ids = rng.integers(0, 2, SPARSE_N)
+        cols = rng.integers(0, W - P + 1, SPARSE_N)
+        rows = np.where(rng.random(SPARSE_N) < 0.5, rng.integers(0, 8, SPARSE_N),
+                        rng.integers(8 * last, H - P + 1, SPARSE_N))
     else:
         raise KeyError(case)
     imgs = torch.stack([gv.pad_img(torch.tensor(r, device=device)) for r in raw])
@@ -271,6 +281,67 @@ def host_windows(imgs, meta) -> np.ndarray:
     off = np.arange(P)
     return padded[ids[:, None, None], cy[:, None, None] + off[None, :, None],
                   cx[:, None, None] + off[None, None, :]]
+
+
+def sweep_case(n_img: int = 2, h_pad: int = 384, w: int = 1408, device="cpu"):
+    """Padded images made to break a strip sweep, from NumPy's
+    ``default_rng(2)``: every value negative, U(-255, -1), and one planted
+    value in (-1, 0) in each 8-row band of each image, all distinct, in a
+    random row of the band and a column of column slice ``band % 4`` (of G1's
+    four).  A strip's maximum is the largest plant of its five bands, so it
+    lies in a different 8-row chunk and slice from strip to strip: a sweep
+    whose accumulator starts at 0, or that combines the wrong partial maxima,
+    gives another answer."""
+    rng = np.random.default_rng(2)
+    raw = rng.uniform(-255, -1, (n_img, h_pad, w))
+    bands, q = h_pad // 8, w // 4
+    plants = -rng.permutation(np.linspace(0.05, 0.95, n_img * bands)).reshape(n_img, bands)
+    for b in range(n_img):
+        for i in range(bands):
+            col = (i % 4) * q + int(rng.integers(0, q))
+            raw[b, 8 * i + int(rng.integers(0, 8)), col] = plants[b, i]
+    return torch.tensor(raw.astype(np.float32), device=device)
+
+
+SWEEPS = ("strip_sweep", "strip_sweep_db", "strip_sweep_batched", "strip_sweep_flat",
+          "whole_image")
+
+
+def sweep_calls(imgs) -> dict:
+    """Each sweep's kernel and plain version on the image stack ``imgs``."""
+    from vloam_tpu_torch.ops import gather_variants as gv
+
+    n_img = imgs.shape[0]
+    img2d = imgs.reshape(-1, imgs.shape[2])
+    args = {"strip_sweep_flat": (img2d, n_img), "whole_image": (img2d,)}
+    return {name: (lambda f=getattr(gv, name), a=args.get(name, (imgs,)): f(*a),
+                   lambda f=getattr(gv, name + "_reference"), a=args.get(name, (imgs,)): f(*a))
+            for name in SWEEPS}
+
+
+def host_strip_maxima(imgs) -> np.ndarray:
+    """Every strip's maximum, computed on the host with NumPy."""
+    from vloam_tpu_torch.ops.gather_variants import P8, n_bases
+
+    x = imgs.cpu().numpy()
+    return np.stack([x[:, 8 * s:8 * s + P8].max(axis=(1, 2))
+                     for s in range(n_bases(x.shape[1]))], axis=1).reshape(-1)
+
+
+def check_sweep_case(device="cuda", n_img: int = 2, h_pad: int = 384, w: int = 1408) -> tuple:
+    """The five sweeps on ``sweep_case`` (at the tool's padded size by
+    default): each kernel held with ``torch.equal`` to its plain version, and
+    the plain strip maxima to the host's.  One (line, all equal)."""
+    from vloam_tpu_torch.ops import gather_variants as gv
+
+    imgs = sweep_case(n_img, h_pad, w, device)
+    equal = {name: torch.equal(kernel(), plain())
+             for name, (kernel, plain) in sweep_calls(imgs).items()}
+    equal["plain maxima"] = np.array_equal(gv.strip_maxima(imgs).cpu().numpy(),
+                                           host_strip_maxima(imgs))
+    return (f"sweep case: {tuple(imgs.shape)} negative images, planted maxima, kernels equal to "
+            "their plain versions: " + ", ".join(f"{k} {v}" for k, v in equal.items()),
+            all(equal.values()))
 
 
 def check_cases(device="cuda", H: int = 376, W: int = 1248, n: int = 2048) -> list[tuple]:
@@ -291,7 +362,8 @@ def check_cases(device="cuda", H: int = 376, W: int = 1248, n: int = 2048) -> li
     return out
 
 
-def kernels_per_call(names=("gather_mma", "gather_resident_mma")) -> list[tuple]:
+def kernels_per_call(names=("strip_sweep", "gather_resident", "gather_mma",
+                            "gather_resident_mma")) -> list[tuple]:
     """The device kernels one wrapper call runs on the tool's inputs, by
     torch.profiler: (line, names or None) a kernel.  Run it after every
     timing: once the profiler has run, launches cost more on the host."""
@@ -299,13 +371,53 @@ def kernels_per_call(names=("gather_mma", "gather_resident_mma")) -> list[tuple]
     from vloam_tpu_torch.tools.gn_check import device_kernels
 
     _, _, _, imgs, meta = make_inputs(torch.device("cuda"))
+    sweeps = sweep_calls(imgs)
     out = []
     for name in names:
-        got = device_kernels(lambda f=getattr(gv, name): f(imgs, meta))
+        got = device_kernels(sweeps[name][0] if name in sweeps else
+                             lambda f=getattr(gv, name): f(imgs, meta))
         kern = ("not measured (the profiler showed no device event)" if got is None else
                 f"{len(got)} ({', '.join(sorted(set(g[:40] for g in got)))})")
         out.append((f"{name}: device kernels per wrapper call {kern}", got))
     return out
+
+
+def host_steps(calls: int = 1000) -> list[str]:
+    """The host microseconds of each step of one G1 call on the tool's
+    inputs (the wrapper's checks, the output's allocation, the stream handle,
+    the ctypes call with the launch inside it), of the whole wrapper and of
+    the one ``amax`` call that computes the same function: one line each, the
+    mean over ``calls`` calls by ``time.perf_counter_ns``."""
+    import time
+
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.ops import gather_variants as gv
+
+    _, _, _, imgs, _ = make_inputs(torch.device("cuda"))
+    n_img, h_pad, w = imgs.shape
+    dev, strips = imgs.device, n_img * gv.n_bases(h_pad)
+    out = torch.empty((strips,), dtype=torch.float32, device=dev)
+    fn, stream = kernels.entry("vloam_sweep_sync"), kernels.stream_ptr(dev)
+    steps = {
+        "checks": lambda: gv._check_imgs("strip_sweep", imgs, 3),
+        "allocation": lambda: torch.empty((strips,), dtype=torch.float32, device=dev),
+        "stream": lambda: kernels.stream_ptr(dev),
+        "ctypes call and launch": lambda: fn(imgs.data_ptr(), n_img, h_pad, w, out.data_ptr(),
+                                             stream),
+        "whole wrapper": lambda: gv.strip_sweep(imgs),
+        "library call (amax)": lambda: imgs.unfold(1, gv.P8, 8).amax(dim=(2, 3)),
+    }
+    lines = []
+    for name, step in steps.items():
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            step()
+        us = (time.perf_counter_ns() - t0) / calls / 1e3
+        torch.cuda.synchronize()
+        lines.append(f"G1 host step {name}: {us:.2f} us a call (mean of {calls})")
+    return lines
 
 
 def report(rows, card: str) -> list[str]:
@@ -317,9 +429,6 @@ def report(rows, card: str) -> list[str]:
         if r["sweep_bytes"] is not None:
             line += (f" ({r['sweep_bytes'] / 1e6:.1f} MB, "
                      f"{r['sweep_bytes'] / 1e6 / r['device_ms']:.0f} GB/s, L2 after the first pass)")
-        if "kernel_only_ms" in r:
-            line += (f" ({r['kernel_only_ms']:.4f} and {r['kernel_only_device_ms']:.4f} ms with "
-                     f"the buckets made beforehand)")
         if r["name"] not in ("gather_patches_pair", "plain_gather"):
             line += f"  plain {r['plain_ms']:.4f} ms"
         if r["library_ms"] is not None:
@@ -344,9 +453,11 @@ def main(argv=None) -> int:
         kernels.SRC_DIR = Path(args.src).resolve()
     card = card_line()
     rows = run("cuda")
-    cases = check_cases()
+    steps = host_steps()
+    cases = check_cases() + [check_sweep_case()]
     counts = kernels_per_call()
-    print("\n".join(report(rows, card)[:-1] + [line for line, _ in cases + counts] + [card]))
+    print("\n".join(report(rows, card)[:-1] + steps + [line for line, _ in cases + counts]
+                    + [card]))
     ok = all(r["correct"] for r in rows) and all(good for _, good in cases)
     return 0 if ok and all(got is None or len(got) == 1 for _, got in counts) else 1
 
