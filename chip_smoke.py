@@ -39,8 +39,10 @@ Phases, each printed on its own lines:
    the plain gather, each equal to its plain version and timed, then the
    four exact gathers on four inputs made to break them (one bucket, every
    alignment and edge, magnitudes 1e-30 to 1e30, 37 keypoints in two bands
-   of each image) and the five sweeps on negative images with planted
-   maxima;
+   of each image), the five sweeps on negative images with planted maxima
+   and with a NaN (held with a NaN-aware equality: the NaN masks, then every
+   other value bit for bit), and G5 with its maximum at each end of what
+   each block of its cluster reads, one call each;
 4. the lidar slice (scan registration -> LO -> MO) alone, 12 frames;
 5. the full step ``vloam_step`` in the decoupled (D) mode at full
    ``kitti_hdl64`` width with the whole map on the device: 40 frames of
@@ -61,7 +63,7 @@ Phases, each printed on its own lines:
    gather, brute-force Hamming matching), 12 frames.
 
 Then the device kernels one Gauss-Newton wrapper call, and one call of G1,
-G9, G10 and G11, runs (torch.profiler, after every timed phase: once it has
+G2, G5, G9, G10 and G11, runs (torch.profiler, after every timed phase: once it has
 run, launches cost more on the host),
 one JSON line of per-kernel results, the card's name and power limit, and
 last the line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -723,7 +725,8 @@ def check_variants(results, card):
     """Phase 3c: the measurement tool, in process.  Fills ``results`` for the
     eleven measurement kernels and returns their launches in the tool's run;
     then holds the four exact gathers to the host's windows on the tool's
-    three cases (tools.gather_experiments.check_cases)."""
+    four cases (tools.gather_experiments.check_cases) and the five sweeps to
+    their plain versions on the sweep, NaN and G5 cases (sweep_checks)."""
     from vloam_tpu_torch.ops import gather_variants as gv
     from vloam_tpu_torch.tools import gather_experiments as tool
 
@@ -731,6 +734,7 @@ def check_variants(results, card):
     gv.reset_launches()
     rows = tool.run("cuda", runs=TIMING_RUNS)
     launches = dict(gv.LAUNCHES)
+    print(f"  {tool.cluster_line()} [{card}]")
     for line in tool.report(rows, card)[:-1]:
         print(f"  {line}")
     for r in rows:
@@ -747,7 +751,7 @@ def check_variants(results, card):
                   + ("none" if r["library_ms"] is None else
                      f"{r['library_ms']:.4f} ms ({r['library_device_ms']:.4f} ms inside a graph)")
                   + f" [{card}]")
-    for line, ok in tool.check_cases("cuda") + [tool.check_sweep_case("cuda")]:
+    for line, ok in tool.check_cases("cuda") + tool.sweep_checks("cuda"):
         print(f"  {line} [{card}]")
         assert ok, line
     print("  the sweeps' bounds (G1-G5) are the padded images read once over the HBM rate, while "
@@ -781,16 +785,18 @@ def check_stream_ptr(dev, card):
 
 
 def count_gather_kernels(card):
-    """The device kernels one call of G1, G9, G10 and G11 runs on the tool's
-    inputs, by torch.profiler: one each (no PyTorch operation before the
-    launch), or "not measured" where the profiler shows no device event.  Run
+    """The device kernels one call of G1, G2, G5, G9, G10 and G11 runs on the
+    tool's inputs, by torch.profiler: one each (no PyTorch operation before
+    the launch).  A call whose profile shows no device event in the retries
+    of ``device_kernels`` fails the run: every count must be measured.  Run
     after every timed phase, as count_gn_kernels."""
     from vloam_tpu_torch.tools import gather_experiments as tool
 
-    print(f"== device kernels per G1 / G9 / G10 / G11 wrapper call (torch.profiler) [{card}]")
+    print(f"== device kernels per G1 / G2 / G5 / G9 / G10 / G11 wrapper call (torch.profiler) "
+          f"[{card}]")
     for line, names in tool.kernels_per_call():
         print(f"  {line} [{card}]")
-        assert names is None or len(names) == 1, line
+        assert names is not None and len(names) == 1, line
 
 
 def association_inputs(knn_args, knn_kw, gn_args):

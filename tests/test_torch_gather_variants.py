@@ -349,3 +349,127 @@ def test_three_term_split_bound():
     x = np.array([0x00800001], np.uint32).view(np.float32)   # 2**-126 (1 + 2**-23)
     _, mid, lo = split3(x)
     assert mid[0] == 0 and (lo.view(np.uint32) & np.uint32(0x1FFF)).any()
+
+
+# --- NaN, G5's plan and the sweep wrappers' host path ---------------------------
+
+@pytest.mark.parametrize("name", tool.SWEEPS)
+def test_sweeps_propagate_nan_like_jnp_max(name):
+    """Each sweep's plain version on ``nan_case`` against ``jnp.max`` over
+    the same strips (or the whole array): the strips that hold the NaN, the
+    groups of eleven that hold those, and every G5 repeat come back NaN, and
+    every other value is the one the images without the NaN give."""
+    imgs, strips = tool.nan_case(*SWEEP_SHAPE)
+    x = imgs.numpy()
+    nb = gv.n_bases(x.shape[1])
+    maxima = np.array([np.asarray(jnp.max(jnp.array(x[b, 8 * s:8 * s + gv.P8])))
+                       for b in range(x.shape[0]) for s in range(nb)], np.float32)
+    whole = np.float32(np.asarray(jnp.max(jnp.array(x))))
+    want, nan_at = {
+        "strip_sweep": (maxima, strips), "strip_sweep_db": (maxima, strips),
+        "strip_sweep_batched": (np_sums_in_order(maxima), sorted({s // gv.BATCH for s in strips})),
+        "strip_sweep_flat": (np_sums_in_order(maxima), sorted({s // gv.BATCH for s in strips})),
+        "whole_image": (np.full(gv.REPS, whole, np.float32), list(range(gv.REPS))),
+    }[name]
+    got = tool.sweep_calls(imgs)[name][0]()
+    assert tool.same(got, torch.tensor(want))
+    assert np.flatnonzero(np.isnan(got.numpy())).tolist() == nan_at
+    clean = tool.sweep_calls(tool.sweep_case(*SWEEP_SHAPE))[name][0]().numpy()
+    keep = ~np.isnan(got.numpy())
+    np.testing.assert_array_equal(got.numpy()[keep], clean[keep])
+    assert gv.LAUNCHES[name] == 0
+
+
+def test_same_is_nan_aware_and_bitwise():
+    nan = float("nan")
+    assert tool.same(torch.tensor([nan, 1.0]), torch.tensor([nan, 1.0]))
+    assert not tool.same(torch.tensor([nan, 1.0]), torch.tensor([1.0, nan]))
+    assert not tool.same(torch.tensor([0.0, 1.0]), torch.tensor([-0.0, 1.0]))
+    assert not tool.same(torch.tensor([1.0]), torch.tensor([1.0, 1.0]))
+
+
+def test_tool_check_nan_case_on_cpu():
+    line, ok = tool.check_nan_case("cpu", *SWEEP_SHAPE)
+    assert ok and "whole_image True" in line and "plain NaN strips True" in line
+
+
+def test_tool_check_whole_image_case_on_cpu():
+    """The G5 case's check passes on the plain version at the small size."""
+    line, ok = tool.check_whole_image_case("cpu", *SWEEP_SHAPE)
+    assert ok, line
+
+
+@pytest.mark.parametrize("shape", [(2, 384, 1408), SWEEP_SHAPE, (1, 48, 128)])
+def test_whole_image_positions(shape):
+    """The G5 case plants its maximum at the first and the last float each
+    block of the cluster reads, and at the array's ends.  Held here in closed
+    form: block q starts at unit 256 q, and its last unit is 256 q + 255 of
+    the last whole round of 256 * 16 units, or of the partial round after
+    it, cut at the array's end."""
+    n = shape[0] * shape[1] * shape[2]
+    n4, ctas = n // 4, tool.WHOLE_CTAS
+    rounds, rest = divmod(n4, 256 * ctas)
+    want = {0, n - 1}
+    for q in range(min(ctas, -(-n4 // 256))):
+        first = 256 * q
+        last = (256 * ctas * rounds + min(rest, first + 256) - 1 if rest > first
+                else 256 * ctas * (rounds - 1) + first + 255)
+        want |= {4 * first, 4 * last + 3}
+    assert tool.whole_image_positions(n) == sorted(want)
+
+
+def test_whole_image_cluster_fits_the_source():
+    """The G5 case plants its maximum for the kernel's own cluster, and that
+    cluster covers the card's 132 SMs at the tool's ten repeats."""
+    import re
+
+    text = (tool.Path(gv.kernels.SRC_DIR) / "gather_sweeps.cu").read_text()
+    ctas = int(re.search(r"constexpr int kWholeCtas = (\d+);", text).group(1))
+    assert tool.WHOLE_CTAS == ctas == 16
+    assert ctas * gv.REPS >= 132
+
+
+@pytest.mark.parametrize("name", ["strip_sweep", "strip_sweep_db", "whole_image"])
+def test_sweep_wrappers_run_nothing_before_the_launch(name, monkeypatch):
+    """On the kernel's path a wrapper runs no PyTorch operation but the
+    output's allocation (``new_empty``, which is ``torch.empty`` with the
+    images' dtype and device), then one launch, then nothing: recorded with
+    the library replaced by a stand-in and every dispatched ATen operation
+    logged."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    log = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            log.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    def entry(entry_name):
+        def launch(*args):
+            assert len(args) == len(gv.kernels._SIGNATURES[entry_name])
+            log.append(("launch", entry_name))
+            return 0
+        return launch
+
+    monkeypatch.setattr(gv.kernels, "entry", entry)
+    monkeypatch.setattr(gv.kernels, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(gv.kernels, "require_cuda", lambda *tensors: None)
+    monkeypatch.setitem(gv.LAUNCHES, name, 0)
+    imgs = torch.empty((2, 384, 1408), device="meta")
+    arg = imgs.reshape(-1, 1408) if name == "whole_image" else imgs
+    with Record():
+        out = getattr(gv, name)(arg)
+    entry_name = {"strip_sweep": "vloam_sweep_sync", "strip_sweep_db": "vloam_sweep_tma_ring",
+                  "whole_image": "vloam_whole_image"}[name]
+    assert log == ["aten.new_empty.default", ("launch", entry_name)]
+    assert tuple(out.shape) == ((gv.REPS,) if name == "whole_image" else (88,))
+    assert gv.LAUNCHES[name] == 1
+
+
+def test_kernels_per_call_counts_g2_and_g5():
+    import inspect
+
+    names = inspect.signature(tool.kernels_per_call).parameters["names"].default
+    assert {"strip_sweep", "strip_sweep_db", "whole_image", "gather_resident", "gather_mma",
+            "gather_resident_mma"} <= set(names)

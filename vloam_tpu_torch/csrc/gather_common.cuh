@@ -1,8 +1,9 @@
 // Shared by the patch-gather measurement kernels (gather_sweeps.cu,
 // gather_variants.cu): the fixed sizes of the experiment, asynchronous
-// 16-byte copies into shared memory (cp.async), rows copied by the TMA onto
-// an mbarrier, a block-wide maximum, and the decoding of a keypoint's
-// (image id, cx, cy) into the aligned band the TPU formulations fetch.
+// 16-byte copies into shared memory (cp.async), bulk copies by the TMA onto
+// an mbarrier, a NaN-propagating block-wide maximum, and the decoding of a
+// keypoint's (image id, cx, cy) into the aligned band the TPU formulations
+// fetch.
 
 #pragma once
 
@@ -37,6 +38,29 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
+// The mbarrier at `bar`: initialise it for `count` arrivals (one thread; the
+// others may use it only after a __syncthreads that follows), and announce
+// the bytes the copies of its current phase will bring (under 2^20).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+
+// One bulk copy by the TMA of `bytes` (a multiple of 16, both addresses on
+// 16 bytes) from global to shared memory, landing on the mbarrier at `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
 // One thread's whole part of a copy by the TMA: initialise the mbarrier at
 // `bar` for one arrival that expects rows * cols floats, then issue one bulk
 // copy a row, src rows at stride src_ld floats landing at stride dst_ld.
@@ -45,17 +69,9 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 // that follows this call.
 __device__ __forceinline__ void tma_rows(float* dst, int dst_ld, const float* src, size_t src_ld,
                                          int rows, int cols, uint64_t* bar) {
-  const unsigned bar_s = smem_u32(bar);
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar_s), "r"(1) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar_s),
-               "r"(rows * cols * 4) : "memory");
-  for (int r = 0; r < rows; ++r) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-        ::"r"(smem_u32(dst + r * dst_ld)), "l"(src + r * src_ld), "r"(cols * 4), "r"(bar_s)
-        : "memory");
-  }
+  mbar_init(bar, 1);
+  mbar_expect_tx(bar, rows * cols * 4);
+  for (int r = 0; r < rows; ++r) bulk_copy(dst + r * dst_ld, src + r * src_ld, cols * 4, bar);
 }
 
 // Wait until the phase `parity` of the mbarrier at `bar` has completed.
@@ -70,21 +86,30 @@ __device__ __forceinline__ void mbar_wait(const uint64_t* bar, unsigned parity) 
   } while (!done);
 }
 
-__device__ __forceinline__ float max4(float m, const float4 v) {
-  return fmaxf(m, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+// The larger of a and b, NaN if either is NaN (PTX max.NaN, sm_80 and later,
+// at max.f32's rate): jnp.max and torch.amax propagate NaN, fmaxf drops it.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
-// Maximum over the block; valid in thread 0.  Every thread must call it.
+__device__ __forceinline__ float max4(float m, const float4 v) {
+  return max_nan(m, max_nan(max_nan(v.x, v.y), max_nan(v.z, v.w)));
+}
+
+// Maximum over the block, NaN if any thread's m is; valid in thread 0.  Every
+// thread must call it.
 __device__ __forceinline__ float block_max(float m) {
   __shared__ float warp_m[32];
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  for (int o = 16; o > 0; o >>= 1) m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, o));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   __syncthreads();   // warp_m may still be read from an earlier call
   if (lane == 0) warp_m[warp] = m;
   __syncthreads();
   if (warp == 0) {
     m = lane < static_cast<int>((blockDim.x + 31) >> 5) ? warp_m[lane] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    for (int o = 16; o > 0; o >>= 1) m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, o));
   }
   return m;
 }

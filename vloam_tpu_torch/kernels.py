@@ -67,9 +67,11 @@ _SIGNATURES = {
     "vloam_gather_patches": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "vloam_gather_patches_stack": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
     "vloam_whole_image": [_P, _I, _I, _P, _P],
+    # () -> clusters resident at once, not an error code
+    "vloam_whole_image_clusters": [],
 }
 # the strip sweeps: (imgs, n_img, h_pad, w, out, stream)
-for _name in ("vloam_sweep_sync", "vloam_sweep_ring2", "vloam_sweep_ring11",
+for _name in ("vloam_sweep_sync", "vloam_sweep_tma_ring", "vloam_sweep_ring11",
               "vloam_sweep_ring11_flat"):
     _SIGNATURES[_name] = [_P, _I, _I, _I, _P, _P]
 # the gather formulations: (imgs, n_img, h_pad, w, meta, n2, out, stream)

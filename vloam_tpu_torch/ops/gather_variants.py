@@ -6,7 +6,7 @@ They ask what limits the patch gather of ``ops/patch_gather`` and are run by
 
   ====  ======================  ===========================================
   G1    ``strip_sweep``         read every 40-row strip, synchronous staging
-  G2    ``strip_sweep_db``      ... the next chunk in flight (2 slots)
+  G2    ``strip_sweep_db``      ... the next chunk in flight (2 slots, TMA)
   G3    ``strip_sweep_batched`` ... eleven chunks in flight, 11 strips a block
   G4    ``strip_sweep_flat``    G3 on the (n_img * H_pad, W_pad) 2-D view
   G5    ``whole_image``         both images, contiguous, ``reps`` times
@@ -22,8 +22,9 @@ The sweeps (G1-G5) reduce what they read so that every copy can be checked:
 G1 and G2 return the maximum of each strip ``padded[b, base:base+40, :]``
 (``n_img * n_bases`` floats, bases 0, 8, ...), G3 and G4 the sum, added in
 order, of each 11 consecutive strip maxima, G5 ``reps`` times the maximum of
-the whole array.  (The TPU kernels keep only their last step's value: their
-grid runs in order, a CUDA grid does not.)  The gathers (G6-G11) take the
+the whole array.  A maximum propagates NaN, as ``jnp.max`` and
+``torch.amax`` do.  (The TPU kernels keep only their last step's value:
+their grid runs in order, a CUDA grid does not.)  The gathers (G6-G11) take the
 padded image stack ``(n_img, H_pad, W_pad)`` and ``meta`` ``(3, N)`` int32,
 rows ``(image id; cx; cy)``, and return ``(N, 32, 32)``; G6, G9, G10 and G11
 are the exact gather, G7 and G8 are defined on the padded array (see their
@@ -145,19 +146,28 @@ def compact_only_reference(imgs, meta):
 # --- wrappers -------------------------------------------------------------------
 
 def _check_imgs(name, imgs, dims):
-    kernels.require_cuda(name, imgs)
-    if imgs.dim() != dims or imgs.dtype != torch.float32 or not imgs.is_contiguous():
+    """The checks a kernel needs of the padded images, cheapest first (a
+    sweep's whole host path is a few microseconds); returns their shape."""
+    if not imgs.is_cuda:
+        kernels.require_cuda(name, imgs)
+    shape = imgs.shape
+    if len(shape) != dims or imgs.dtype is not torch.float32 or not imgs.is_contiguous():
         raise ValueError(f"{name}: the images must be a contiguous float32 tensor of {dims} dims")
-    if imgs.shape[-1] % 128 != 0 or imgs.shape[-2] % 8 != 0 or imgs.shape[-2] < P8:
+    if shape[-1] % 128 != 0 or shape[-2] % 8 != 0 or shape[-2] < P8:
         raise ValueError(f"{name}: the images must be padded (pad_img)")
+    if imgs.data_ptr() % 16 != 0:
+        raise ValueError(f"{name}: the images must start on 16 bytes")
+    return shape
 
 
-def _sweep(name, entry, imgs, n_img, h_pad, per_block):
+def _sweep(name, entry, imgs, n_img, h_pad, w, per_block):
+    """Checks done: one allocation (``new_empty``: an uninitialised
+    ``torch.empty`` of the images' dtype and device), one ctypes call."""
     strips = n_img * n_bases(h_pad)
     if strips % per_block != 0:
         raise ValueError(f"{name}: {strips} strips do not split into groups of {per_block}")
-    out = torch.empty((strips // per_block,), dtype=torch.float32, device=imgs.device)
-    rc = kernels.entry(entry)(imgs.data_ptr(), n_img, h_pad, imgs.shape[-1], out.data_ptr(),
+    out = imgs.new_empty(strips // per_block)
+    rc = kernels.entry(entry)(imgs.data_ptr(), n_img, h_pad, w, out.data_ptr(),
                               kernels.stream_ptr(imgs.device))
     kernels.check(rc, name)
     LAUNCHES[name] += 1
@@ -169,48 +179,54 @@ def strip_sweep(imgs):
     strip is read in full with synchronous staging, split by columns over a
     cluster of four blocks whose partial maxima meet in distributed shared
     memory."""
-    if imgs.device.type == "cpu":
+    if imgs.is_cpu:
         return strip_sweep_reference(imgs)
-    _check_imgs("strip_sweep", imgs, 3)
-    return _sweep("strip_sweep", "vloam_sweep_sync", imgs, imgs.shape[0], imgs.shape[1], 1)
+    n_img, h_pad, w = _check_imgs("strip_sweep", imgs, 3)
+    return _sweep("strip_sweep", "vloam_sweep_sync", imgs, n_img, h_pad, w, 1)
 
 
 def strip_sweep_db(imgs):
-    """G2: as G1 through a two-slot asynchronous ring."""
-    if imgs.device.type == "cpu":
+    """G2: as G1, each block streaming its column slice in 8-row chunks
+    through a two-slot ring of bulk copies by the TMA, the next chunk in
+    flight while one is reduced."""
+    if imgs.is_cpu:
         return strip_sweep_db_reference(imgs)
-    _check_imgs("strip_sweep_db", imgs, 3)
-    return _sweep("strip_sweep_db", "vloam_sweep_ring2", imgs, imgs.shape[0], imgs.shape[1], 1)
+    n_img, h_pad, w = _check_imgs("strip_sweep_db", imgs, 3)
+    return _sweep("strip_sweep_db", "vloam_sweep_tma_ring", imgs, n_img, h_pad, w, 1)
 
 
 def strip_sweep_batched(imgs):
     """G3: -> (n_img * n_bases / 11,) sums of 11 strip maxima; eleven-slot ring."""
-    if imgs.device.type == "cpu":
+    if imgs.is_cpu:
         return strip_sweep_batched_reference(imgs)
-    _check_imgs("strip_sweep_batched", imgs, 3)
-    return _sweep("strip_sweep_batched", "vloam_sweep_ring11", imgs, imgs.shape[0],
-                  imgs.shape[1], BATCH)
+    n_img, h_pad, w = _check_imgs("strip_sweep_batched", imgs, 3)
+    return _sweep("strip_sweep_batched", "vloam_sweep_ring11", imgs, n_img, h_pad, w, BATCH)
 
 
 def strip_sweep_flat(img2d, n_img: int):
     """G4: G3 on the (n_img * H_pad, W_pad) view of the same memory."""
-    if img2d.device.type == "cpu":
+    if img2d.is_cpu:
         return strip_sweep_flat_reference(img2d, n_img)
-    _check_imgs("strip_sweep_flat", img2d, 2)
-    if img2d.shape[0] % n_img != 0:
+    rows, w = _check_imgs("strip_sweep_flat", img2d, 2)
+    if rows % n_img != 0:
         raise ValueError("strip_sweep_flat: the rows do not split into n_img images")
-    return _sweep("strip_sweep_flat", "vloam_sweep_ring11_flat", img2d, n_img,
-                  img2d.shape[0] // n_img, BATCH)
+    return _sweep("strip_sweep_flat", "vloam_sweep_ring11_flat", img2d, n_img, rows // n_img, w,
+                  BATCH)
 
 
 def whole_image(img2d, reps: int = REPS):
-    """G5: -> (reps,), each the maximum of the whole array."""
-    if img2d.device.type == "cpu":
+    """G5: -> (reps,), each the maximum of the whole array.  One launch, one
+    cluster of 16 blocks a repeat, reading the array in 16-byte
+    loads; the blocks' maxima meet in distributed shared memory and each
+    ``out[r]`` is written once."""
+    if img2d.is_cpu:
         return whole_image_reference(img2d, reps)
-    _check_imgs("whole_image", img2d, 2)
-    out = torch.full((reps,), float("-inf"), dtype=torch.float32, device=img2d.device)
-    rc = kernels.entry("vloam_whole_image")(img2d.data_ptr(), img2d.numel(), reps,
-                                            out.data_ptr(), kernels.stream_ptr(img2d.device))
+    rows, w = _check_imgs("whole_image", img2d, 2)
+    if reps < 1:
+        raise ValueError(f"whole_image: {reps} repeats")
+    out = img2d.new_empty(reps)
+    rc = kernels.entry("vloam_whole_image")(img2d.data_ptr(), rows * w, reps, out.data_ptr(),
+                                            kernels.stream_ptr(img2d.device))
     kernels.check(rc, "whole_image")
     LAUNCHES["whole_image"] += 1
     return out

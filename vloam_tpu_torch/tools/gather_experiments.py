@@ -22,13 +22,16 @@ the first find the 4.3 MB of images in the L2 cache, so this is an L2 rate,
 not an HBM rate), the plain version's ms, the ms of the one PyTorch call
 that computes the same function where there is one (``library``: ``amax``
 over an ``unfold`` or ``expand`` view for G1, G2 and G5, one index call on an
-``unfold`` view for the exact gathers), ``correct=``; then the four exact
-gathers and their plain version on inputs made to break them (``CASES``),
-the host microseconds of the steps of one G1 call beside one ``amax``
-call's, the five sweeps on negative images with planted maxima
-(``sweep_case``), the device kernels one call of G1, G9, G10 and G11 runs
-(torch.profiler), and the card's name and power limit.  It needs a GPU and
-exits nonzero without one.
+``unfold`` view for the exact gathers), ``correct=``; then G5's launch
+(blocks a repeat, clusters resident at once), the host
+microseconds of the steps of one G1, G2 and G5 call beside one ``amax``
+call's, the four exact gathers and their plain version on inputs made to
+break them (``CASES``), the five sweeps on negative images with planted
+maxima (``sweep_case``) and with a NaN (``nan_case``), G5 with its maximum
+at each end of what each block reads (``whole_image_case``), the device kernels
+one call of G1, G2, G5, G9, G10 and G11 runs (torch.profiler), and the
+card's name and power limit.  It needs a GPU and exits nonzero without
+one.
 """
 
 from __future__ import annotations
@@ -45,10 +48,10 @@ import torch
 RUNS = 20
 LABELS = {
     "strip_sweep": "G1 strip sweep, synchronous staging",
-    "strip_sweep_db": "G2 strip sweep, two-slot ring",
+    "strip_sweep_db": "G2 strip sweep, two-slot TMA ring",
     "strip_sweep_batched": "G3 strip sweep, eleven-slot ring",
     "strip_sweep_flat": "G4 eleven-slot ring, flat 2-D view",
-    "whole_image": "G5 whole images x10, grid-stride",
+    "whole_image": "G5 whole images x10, cluster a repeat",
     "gather_narrow": "G6 gather from the needed 128-B lines",
     "dma_only": "G7 transport only (band, raw corner)",
     "compact_only": "G8 compaction only (1 band/32 kp)",
@@ -305,6 +308,7 @@ def sweep_case(n_img: int = 2, h_pad: int = 384, w: int = 1408, device="cpu"):
 
 SWEEPS = ("strip_sweep", "strip_sweep_db", "strip_sweep_batched", "strip_sweep_flat",
           "whole_image")
+WHOLE_CTAS = 16   # blocks of G5's cluster, one cluster a repeat (kWholeCtas in gather_sweeps.cu)
 
 
 def sweep_calls(imgs) -> dict:
@@ -328,6 +332,16 @@ def host_strip_maxima(imgs) -> np.ndarray:
                      for s in range(n_bases(x.shape[1]))], axis=1).reshape(-1)
 
 
+def same(got, want) -> bool:
+    """Equal shapes, NaN at the same places, every other value bit for bit
+    (``torch.equal`` is False wherever both hold a NaN)."""
+    if got.shape != want.shape:
+        return False
+    nan = torch.isnan(got)
+    return torch.equal(nan, torch.isnan(want)) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
 def check_sweep_case(device="cuda", n_img: int = 2, h_pad: int = 384, w: int = 1408) -> tuple:
     """The five sweeps on ``sweep_case`` (at the tool's padded size by
     default): each kernel held with ``torch.equal`` to its plain version, and
@@ -342,6 +356,88 @@ def check_sweep_case(device="cuda", n_img: int = 2, h_pad: int = 384, w: int = 1
     return (f"sweep case: {tuple(imgs.shape)} negative images, planted maxima, kernels equal to "
             "their plain versions: " + ", ".join(f"{k} {v}" for k, v in equal.items()),
             all(equal.values()))
+
+
+def nan_case(n_img: int = 2, h_pad: int = 384, w: int = 1408, device="cpu"):
+    """``sweep_case`` with one NaN: in the last image, row 3 of 8-row band
+    min(5, last band), column 7 of G1's third column slice.  Returns (images,
+    the strips that hold it as indices into the ``n_img * n_bases`` strip
+    maxima)."""
+    from vloam_tpu_torch.ops import gather_variants as gv
+
+    imgs = sweep_case(n_img, h_pad, w, device)
+    band = min(5, h_pad // 8 - 1)
+    imgs[n_img - 1, 8 * band + 3, 2 * (w // 4) + 7] = float("nan")
+    nb = gv.n_bases(h_pad)
+    strips = [(n_img - 1) * nb + s for s in range(max(0, band - 4), min(band, nb - 1) + 1)]
+    return imgs, strips
+
+
+def check_nan_case(device="cuda", n_img: int = 2, h_pad: int = 384, w: int = 1408) -> tuple:
+    """The five sweeps on ``nan_case``: each kernel held to its plain version
+    with NaN-aware equality (``same``), and the plain strip maxima NaN exactly
+    at the strips that hold the NaN.  One (line, all equal)."""
+    from vloam_tpu_torch.ops import gather_variants as gv
+
+    imgs, strips = nan_case(n_img, h_pad, w, device)
+    equal = {name: same(kernel(), plain())
+             for name, (kernel, plain) in sweep_calls(imgs).items()}
+    nan_at = torch.isnan(gv.strip_maxima(imgs)).nonzero().flatten().tolist()
+    equal["plain NaN strips"] = nan_at == strips
+    return (f"NaN case: {tuple(imgs.shape)}, a NaN in strips {strips}, kernels equal to their "
+            "plain versions (NaN where they hold NaN): "
+            + ", ".join(f"{k} {v}" for k, v in equal.items()), all(equal.values()))
+
+
+def whole_image_positions(n_floats: int) -> list[int]:
+    """Where ``whole_image_case`` plants its maximum: the first and the last
+    float each block of G5's cluster reads, found by walking every 16-byte
+    unit (block q takes the units q * 256 + t, t < 256, then 256 *
+    WHOLE_CTAS units further on, as ``whole_image_kernel`` does), and the
+    array's two ends."""
+    block = np.arange(n_floats // 4) % (256 * WHOLE_CTAS) // 256   # the reader of each unit
+    ends = {0, n_floats - 1}
+    for q in range(WHOLE_CTAS):
+        units = np.flatnonzero(block == q)
+        if units.size:
+            ends |= {4 * int(units[0]), 4 * int(units[-1]) + 3}
+    return sorted(ends)
+
+
+def whole_image_case(n_img: int = 2, h_pad: int = 384, w: int = 1408, device="cpu"):
+    """The (n_img * h_pad, w) array of ``sweep_case`` (every value negative),
+    and the positions at which ``check_whole_image_case`` plants 0.5."""
+    img2d = sweep_case(n_img, h_pad, w, device).reshape(-1, w)
+    return img2d, whole_image_positions(img2d.numel())
+
+
+def check_whole_image_case(device="cuda", n_img: int = 2, h_pad: int = 384,
+                           w: int = 1408) -> tuple:
+    """G5 with its maximum planted at each position of ``whole_image_case``,
+    one call each: the kernel held with ``same`` to its plain version, which
+    must give 0.5 for every repeat.  One (line, all equal)."""
+    from vloam_tpu_torch.ops import gather_variants as gv
+
+    img2d, positions = whole_image_case(n_img, h_pad, w, device)
+    flat = img2d.view(-1)
+    bad = []
+    for pos in positions:
+        old = flat[pos].clone()
+        flat[pos] = 0.5
+        want = gv.whole_image_reference(img2d)
+        if not (same(gv.whole_image(img2d), want) and bool((want == 0.5).all())):
+            bad.append(pos)
+        flat[pos] = old
+    return (f"G5 case: {tuple(img2d.shape)} negative, the maximum at {len(positions)} positions "
+            f"(the first and last float each of the cluster's {WHOLE_CTAS} blocks reads, the "
+            f"array's two ends), one call each: kernel equal to its plain version at "
+            f"{len(positions) - len(bad)} of {len(positions)}" + (f", not at {bad}" if bad else ""),
+            not bad)
+
+
+def sweep_checks(device="cuda") -> list[tuple]:
+    """The sweeps' three cases at the tool's size: (line, all equal) each."""
+    return [check_sweep_case(device), check_nan_case(device), check_whole_image_case(device)]
 
 
 def check_cases(device="cuda", H: int = 376, W: int = 1248, n: int = 2048) -> list[tuple]:
@@ -362,8 +458,8 @@ def check_cases(device="cuda", H: int = 376, W: int = 1248, n: int = 2048) -> li
     return out
 
 
-def kernels_per_call(names=("strip_sweep", "gather_resident", "gather_mma",
-                            "gather_resident_mma")) -> list[tuple]:
+def kernels_per_call(names=("strip_sweep", "strip_sweep_db", "whole_image", "gather_resident",
+                            "gather_mma", "gather_resident_mma")) -> list[tuple]:
     """The device kernels one wrapper call runs on the tool's inputs, by
     torch.profiler: (line, names or None) a kernel.  Run it after every
     timing: once the profiler has run, launches cost more on the host."""
@@ -382,41 +478,82 @@ def kernels_per_call(names=("strip_sweep", "gather_resident", "gather_mma",
     return out
 
 
+def cluster_line() -> str:
+    """G5's launch on the tool's inputs, with the clusters of it the card
+    holds at once (cudaOccupancyMaxActiveClusters)."""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.ops import gather_variants as gv
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = kernels.entry("vloam_whole_image_clusters")()
+    return (f"G5 launch: a cluster of {WHOLE_CTAS} blocks a repeat x {gv.REPS} repeats = "
+            f"{WHOLE_CTAS * gv.REPS} blocks on {sms} SMs; clusters resident at once: "
+            f"{resident} (cudaOccupancyMaxActiveClusters)")
+
+
 def host_steps(calls: int = 1000) -> list[str]:
-    """The host microseconds of each step of one G1 call on the tool's
-    inputs (the wrapper's checks, the output's allocation, the stream handle,
-    the ctypes call with the launch inside it), of the whole wrapper and of
-    the one ``amax`` call that computes the same function: one line each, the
-    mean over ``calls`` calls by ``time.perf_counter_ns``."""
+    """The host microseconds of each step of one G1, G2 and G5 call on the
+    tool's inputs (the wrapper's checks, the output's allocation, the stream
+    handle, the ctypes call with the launch inside it), of the whole wrapper
+    and of the one ``amax`` call that computes the same function; and of the
+    ctypes call of G6, a launch without a cluster: one line each, the mean
+    over ``calls`` calls by ``time.perf_counter_ns``."""
     import time
 
     from vloam_tpu_torch import kernels
     from vloam_tpu_torch.ops import gather_variants as gv
 
-    _, _, _, imgs, _ = make_inputs(torch.device("cuda"))
+    _, _, _, imgs, meta = make_inputs(torch.device("cuda"))
     n_img, h_pad, w = imgs.shape
-    dev, strips = imgs.device, n_img * gv.n_bases(h_pad)
+    img2d = imgs.reshape(-1, w)
+    dev, strips, n = imgs.device, n_img * gv.n_bases(h_pad), img2d.numel()
     out = torch.empty((strips,), dtype=torch.float32, device=dev)
-    fn, stream = kernels.entry("vloam_sweep_sync"), kernels.stream_ptr(dev)
-    steps = {
-        "checks": lambda: gv._check_imgs("strip_sweep", imgs, 3),
-        "allocation": lambda: torch.empty((strips,), dtype=torch.float32, device=dev),
-        "stream": lambda: kernels.stream_ptr(dev),
-        "ctypes call and launch": lambda: fn(imgs.data_ptr(), n_img, h_pad, w, out.data_ptr(),
-                                             stream),
-        "whole wrapper": lambda: gv.strip_sweep(imgs),
-        "library call (amax)": lambda: imgs.unfold(1, gv.P8, 8).amax(dim=(2, 3)),
+    out5 = torch.empty((gv.REPS,), dtype=torch.float32, device=dev)
+    patches = torch.empty((meta.shape[1], gv.P, gv.P), dtype=torch.float32, device=dev)
+    stream = kernels.stream_ptr(dev)
+
+    def sweep_steps(name, entry):
+        fn = kernels.entry(entry)
+        return {
+            "checks": lambda: gv._check_imgs(name, imgs, 3),
+            "allocation": lambda: imgs.new_empty(strips),
+            "stream": lambda: kernels.stream_ptr(dev),
+            "ctypes call and launch": lambda: fn(imgs.data_ptr(), n_img, h_pad, w,
+                                                 out.data_ptr(), stream),
+            "whole wrapper": lambda: getattr(gv, name)(imgs),
+            "library call (amax)": lambda: imgs.unfold(1, gv.P8, 8).amax(dim=(2, 3)),
+        }
+
+    whole, narrow = kernels.entry("vloam_whole_image"), kernels.entry("vloam_gather_narrow")
+    groups = {
+        "G1": sweep_steps("strip_sweep", "vloam_sweep_sync"),
+        "G2": sweep_steps("strip_sweep_db", "vloam_sweep_tma_ring"),
+        "G5": {
+            "checks": lambda: gv._check_imgs("whole_image", img2d, 2),
+            "allocation": lambda: img2d.new_empty(gv.REPS),
+            "stream": lambda: kernels.stream_ptr(dev),
+            "ctypes call and launch": lambda: whole(img2d.data_ptr(), n, gv.REPS, out5.data_ptr(),
+                                                    stream),
+            "whole wrapper": lambda: gv.whole_image(img2d),
+            "library call (amax)": lambda: img2d.expand(gv.REPS, -1, -1).amax(dim=(1, 2)),
+        },
+        "G6": {
+            "ctypes call and launch, no cluster": lambda: narrow(
+                imgs.data_ptr(), n_img, h_pad, w, meta.data_ptr(), meta.shape[1],
+                patches.data_ptr(), stream),
+        },
     }
     lines = []
-    for name, step in steps.items():
-        step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter_ns()
-        for _ in range(calls):
+    for label, steps in groups.items():
+        for name, step in steps.items():
             step()
-        us = (time.perf_counter_ns() - t0) / calls / 1e3
-        torch.cuda.synchronize()
-        lines.append(f"G1 host step {name}: {us:.2f} us a call (mean of {calls})")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(calls):
+                step()
+            us = (time.perf_counter_ns() - t0) / calls / 1e3
+            torch.cuda.synchronize()
+            lines.append(f"{label} host step {name}: {us:.2f} us a call (mean of {calls})")
     return lines
 
 
@@ -453,13 +590,13 @@ def main(argv=None) -> int:
         kernels.SRC_DIR = Path(args.src).resolve()
     card = card_line()
     rows = run("cuda")
-    steps = host_steps()
-    cases = check_cases() + [check_sweep_case()]
+    steps = [cluster_line()] + host_steps()
+    cases = check_cases() + sweep_checks()
     counts = kernels_per_call()
     print("\n".join(report(rows, card)[:-1] + steps + [line for line, _ in cases + counts]
                     + [card]))
     ok = all(r["correct"] for r in rows) and all(good for _, good in cases)
-    return 0 if ok and all(got is None or len(got) == 1 for _, got in counts) else 1
+    return 0 if ok and all(got is not None and len(got) == 1 for _, got in counts) else 1
 
 
 if __name__ == "__main__":

@@ -169,18 +169,23 @@ def launch_alone(kind: str, args, live: bool = True):
         *p, m, iters, delta, lam, out.data_ptr(), kernels.stream_ptr(dev)), "gn_vo")
 
 
-def device_kernels(fn) -> list[str] | None:
+def device_kernels(fn, tries: int = 3) -> list[str] | None:
     """Names of the device kernels one call of fn() runs, by torch.profiler;
-    None where the profiler shows no device event at all."""
+    None where the profiler shows no device event at all in ``tries``
+    profiled calls (now and then it records none for a call of a few
+    microseconds)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return names or None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return None
 
 
 def launch_line(label: str, kind: str, args, card: str) -> str:
