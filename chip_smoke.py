@@ -785,14 +785,14 @@ def check_stream_ptr(dev, card):
 
 
 def count_gather_kernels(card):
-    """The device kernels one call of G1, G2, G5, G9, G10 and G11 runs on the
+    """The device kernels one call of G1-G5, G9, G10 and G11 runs on the
     tool's inputs, by torch.profiler: one each (no PyTorch operation before
     the launch).  A call whose profile shows no device event in the retries
     of ``device_kernels`` fails the run: every count must be measured.  Run
     after every timed phase, as count_gn_kernels."""
     from vloam_tpu_torch.tools import gather_experiments as tool
 
-    print(f"== device kernels per G1 / G2 / G5 / G9 / G10 / G11 wrapper call (torch.profiler) "
+    print(f"== device kernels per G1-G5 / G9 / G10 / G11 wrapper call (torch.profiler) "
           f"[{card}]")
     for line, names in tool.kernels_per_call():
         print(f"  {line} [{card}]")

@@ -267,17 +267,21 @@ def test_sweeps_on_sweep_case(name):
 
 def test_sweep_case_covers_what_it_claims():
     """Every value is negative, and the strips' maxima lie in every 8-row
-    chunk and in every one of G1's four column slices."""
+    chunk and in every one of G1's four column slices; at the tool's size
+    also in every one of G3's and G4's 16."""
     for shape in (SWEEP_SHAPE, (2, 384, 1408)):
         x = tool.sweep_case(*shape).numpy()
         assert x.max() < 0
-        chunks, slices = set(), set()
+        chunks, slices, slices16 = set(), set(), set()
         for b in range(shape[0]):
             for i in range(gv.n_bases(shape[1])):
                 r, c = np.unravel_index(x[b, 8 * i:8 * i + gv.P8].argmax(), (gv.P8, shape[2]))
                 chunks.add(int(r) // 8)
                 slices.add(int(c) // (shape[2] // 4))
+                slices16.add(int(c) // (shape[2] // gv.GROUP_CTAS))
         assert chunks == set(range(5)) and slices == set(range(4))
+        if shape[1:] == (384, 1408):
+            assert slices16 == set(range(gv.GROUP_CTAS)) and tool.SLICES == gv.GROUP_CTAS
     np.testing.assert_array_equal(tool.host_strip_maxima(tool.sweep_case(*SWEEP_SHAPE)),
                                   np_strip_maxima(tool.sweep_case(*SWEEP_SHAPE).numpy()))
 
@@ -429,7 +433,53 @@ def test_whole_image_cluster_fits_the_source():
     assert ctas * gv.REPS >= 132
 
 
-@pytest.mark.parametrize("name", ["strip_sweep", "strip_sweep_db", "whole_image"])
+def test_batched_cluster_fits_the_source():
+    """G3's and G4's cluster and slots, mirrored in Python, are the
+    kernel's: 16 CTAs a group of eleven strips, 8 groups at the tool's size
+    (128 CTAs, no more than the 132 SMs), eleven slots of 20-row half slices
+    (77,440 B at 1408 columns, so that two blocks share an SM), each slot on
+    128 bytes, and the tensor map's box rules at every width the tests and
+    the tool use."""
+    import re
+
+    text = (tool.Path(gv.kernels.SRC_DIR) / "gather_sweeps.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert gv.GROUP_CTAS == const("kGroupCtas") == 16
+    assert gv.BATCH == const("kBatch") == 11 and gv.BOX_MAX == const("kBoxMax") == 256
+    assert gv.SLOT_ROWS == const("kSlotRows") == gv.P8 // 2
+    groups = 2 * gv.n_bases(384) // gv.BATCH
+    assert groups == 8 and gv.GROUP_CTAS * groups == 128 <= 132
+    assert gv.batched_smem(1408) == 11 * 20 * 88 * 4 == 77_440
+    assert 2 * gv.batched_smem(1408) <= gv.SMEM_MAX
+    assert gv.batched_smem(1408) // gv.BATCH % 128 == 0   # each slot starts on 128 bytes
+    for w in (128, 512, 1408):
+        cols = w // gv.GROUP_CTAS
+        assert cols * 4 % 16 == 0 and cols <= gv.BOX_MAX and gv.SLOT_ROWS <= gv.BOX_MAX
+        assert gv.batched_smem(w) <= gv.SMEM_MAX
+        gv._check_box("strip_sweep_batched", w)
+
+
+@pytest.mark.parametrize("name", ["strip_sweep_batched", "strip_sweep_flat"])
+@pytest.mark.parametrize("w", [4224, 8448])
+def test_batched_sweeps_refuse_widths_the_tensor_map_cannot_box(name, w, monkeypatch):
+    """A padded width whose column slice overflows a box (4224: 264
+    columns; 8448: 528, whose eleven slots also overflow a block's shared
+    memory) raises ValueError before anything is allocated or launched."""
+    monkeypatch.setattr(gv.kernels, "require_cuda", lambda *tensors: None)
+    monkeypatch.setattr(gv.kernels, "entry", lambda entry_name: pytest.fail("launched"))
+    assert w // gv.GROUP_CTAS > gv.BOX_MAX and (w < 8448 or gv.batched_smem(w) > gv.SMEM_MAX)
+    imgs = torch.empty((2, 120, w), device="meta")
+    arg = (imgs,) if name == "strip_sweep_batched" else (imgs.reshape(-1, w), 2)
+    with pytest.raises(ValueError, match="tensor-map boxes"):
+        getattr(gv, name)(*arg)
+    assert gv.LAUNCHES[name] == 0
+
+
+@pytest.mark.parametrize("name", ["strip_sweep", "strip_sweep_db", "strip_sweep_batched",
+                                  "strip_sweep_flat", "whole_image"])
 def test_sweep_wrappers_run_nothing_before_the_launch(name, monkeypatch):
     """On the kernel's path a wrapper runs no PyTorch operation but the
     output's allocation (``new_empty``, which is ``torch.empty`` with the
@@ -457,13 +507,17 @@ def test_sweep_wrappers_run_nothing_before_the_launch(name, monkeypatch):
     monkeypatch.setattr(gv.kernels, "require_cuda", lambda *tensors: None)
     monkeypatch.setitem(gv.LAUNCHES, name, 0)
     imgs = torch.empty((2, 384, 1408), device="meta")
-    arg = imgs.reshape(-1, 1408) if name == "whole_image" else imgs
+    args = {"whole_image": (imgs.reshape(-1, 1408),),
+            "strip_sweep_flat": (imgs.reshape(-1, 1408), 2)}.get(name, (imgs,))
     with Record():
-        out = getattr(gv, name)(arg)
+        out = getattr(gv, name)(*args)
     entry_name = {"strip_sweep": "vloam_sweep_sync", "strip_sweep_db": "vloam_sweep_tma_ring",
+                  "strip_sweep_batched": "vloam_sweep_batched",
+                  "strip_sweep_flat": "vloam_sweep_batched_flat",
                   "whole_image": "vloam_whole_image"}[name]
     assert log == ["aten.new_empty.default", ("launch", entry_name)]
-    assert tuple(out.shape) == ((gv.REPS,) if name == "whole_image" else (88,))
+    assert tuple(out.shape) == {"whole_image": (gv.REPS,), "strip_sweep_batched": (8,),
+                                "strip_sweep_flat": (8,)}.get(name, (88,))
     assert gv.LAUNCHES[name] == 1
 
 
@@ -471,5 +525,5 @@ def test_kernels_per_call_counts_g2_and_g5():
     import inspect
 
     names = inspect.signature(tool.kernels_per_call).parameters["names"].default
-    assert {"strip_sweep", "strip_sweep_db", "whole_image", "gather_resident", "gather_mma",
-            "gather_resident_mma"} <= set(names)
+    assert {"strip_sweep", "strip_sweep_db", "strip_sweep_batched", "strip_sweep_flat",
+            "whole_image", "gather_resident", "gather_mma", "gather_resident_mma"} <= set(names)

@@ -69,10 +69,14 @@ _SIGNATURES = {
     "vloam_whole_image": [_P, _I, _I, _P, _P],
     # () -> clusters resident at once, not an error code
     "vloam_whole_image_clusters": [],
+    # (w) -> clusters of G3's launch resident at once, not an error code
+    "vloam_sweep_batched_clusters": [_I],
+    # (imgs, n_img, h_pad, w, flat): one tensor map's encoding, its CUresult
+    "vloam_sweep_batched_encode": [_P, _I, _I, _I, _I],
 }
 # the strip sweeps: (imgs, n_img, h_pad, w, out, stream)
-for _name in ("vloam_sweep_sync", "vloam_sweep_tma_ring", "vloam_sweep_ring11",
-              "vloam_sweep_ring11_flat"):
+for _name in ("vloam_sweep_sync", "vloam_sweep_tma_ring", "vloam_sweep_batched",
+              "vloam_sweep_batched_flat"):
     _SIGNATURES[_name] = [_P, _I, _I, _I, _P, _P]
 # the gather formulations: (imgs, n_img, h_pad, w, meta, n2, out, stream)
 for _name in ("vloam_gather_narrow", "vloam_gather_dma_only", "vloam_gather_compact_only",

@@ -7,8 +7,8 @@ They ask what limits the patch gather of ``ops/patch_gather`` and are run by
   ====  ======================  ===========================================
   G1    ``strip_sweep``         read every 40-row strip, synchronous staging
   G2    ``strip_sweep_db``      ... the next chunk in flight (2 slots, TMA)
-  G3    ``strip_sweep_batched`` ... eleven chunks in flight, 11 strips a block
-  G4    ``strip_sweep_flat``    G3 on the (n_img * H_pad, W_pad) 2-D view
+  G3    ``strip_sweep_batched`` ... eleven strips in flight, TMA from a 3-D map
+  G4    ``strip_sweep_flat``    G3 from a 2-D map over the flat view
   G5    ``whole_image``         both images, contiguous, ``reps`` times
   G6    ``gather_narrow``       exact gather from the 128-byte lines it needs
   G7    ``dma_only``            transport only: the band's raw corner
@@ -48,7 +48,10 @@ P = 32            # patch side
 P8 = P + 8        # rows of a strip or band
 BAND = 256        # columns of a band, from a 128-aligned base
 BLOCK_KP = 32     # keypoints that share one band in compact_only
-BATCH = 11        # strips per block, and chunks in flight, of the batched sweeps
+BATCH = 11        # strips of a batched sweep's group, all in flight at once
+GROUP_CTAS = 16   # CTAs of a batched sweep's cluster, a column slice each (kGroupCtas)
+SLOT_ROWS = 20    # rows of a batched sweep's slot, half a strip (kSlotRows)
+BOX_MAX = 256     # elements a tensor map's box may span in one dimension
 REPS = 10         # repeats of whole_image
 SMEM_MAX = 232448  # bytes of shared memory a block may have on sm_90
 
@@ -76,6 +79,13 @@ def pad_img(img: torch.Tensor) -> torch.Tensor:
 def n_bases(h_pad: int) -> int:
     """8-aligned row bases of the 40-row strips of one padded image."""
     return (h_pad - P8) // 8 + 1
+
+
+def batched_smem(w: int) -> int:
+    """Bytes of shared memory one G3 or G4 block takes for images ``w``
+    wide: eleven slots, each 20 rows of one strip's w / 16 column slice
+    (``batched_smem`` in ``csrc/gather_sweeps.cu``)."""
+    return BATCH * SLOT_ROWS * (w // GROUP_CTAS) * 4
 
 
 # --- plain versions -----------------------------------------------------------
@@ -195,22 +205,41 @@ def strip_sweep_db(imgs):
     return _sweep("strip_sweep_db", "vloam_sweep_tma_ring", imgs, n_img, h_pad, w, 1)
 
 
+def _check_box(name, w):
+    """The tensor map's rules for G3's and G4's width: the box, 20 rows of a
+    strip's column slice of w / 16 columns, spans a multiple of 16 bytes and
+    at most 256 columns, and the eleven slots fit a block's shared memory."""
+    if w % (4 * GROUP_CTAS) != 0 or w // GROUP_CTAS > BOX_MAX or batched_smem(w) > SMEM_MAX:
+        raise ValueError(f"{name}: {w} columns do not split into {GROUP_CTAS} tensor-map boxes "
+                         f"of at most {BOX_MAX} columns and 16-byte rows whose eleven slots "
+                         f"fit {SMEM_MAX} bytes")
+
+
 def strip_sweep_batched(imgs):
-    """G3: -> (n_img * n_bases / 11,) sums of 11 strip maxima; eleven-slot ring."""
+    """G3: -> (n_img * n_bases / 11,) sums of 11 strip maxima, added in
+    order.  One cluster of 16 blocks a group of eleven strips, each block one
+    column slice of every strip of the group: eleven TMA tiled copies from a
+    3-D tensor map over (W_pad, H_pad, n_img), all in flight at once, each
+    waited for in order and reduced, each slot then refilled once with the
+    strip's other 20 rows; the slices' maxima meet in distributed shared
+    memory and each output is written once."""
     if imgs.is_cpu:
         return strip_sweep_batched_reference(imgs)
     n_img, h_pad, w = _check_imgs("strip_sweep_batched", imgs, 3)
-    return _sweep("strip_sweep_batched", "vloam_sweep_ring11", imgs, n_img, h_pad, w, BATCH)
+    _check_box("strip_sweep_batched", w)
+    return _sweep("strip_sweep_batched", "vloam_sweep_batched", imgs, n_img, h_pad, w, BATCH)
 
 
 def strip_sweep_flat(img2d, n_img: int):
-    """G4: G3 on the (n_img * H_pad, W_pad) view of the same memory."""
+    """G4: G3 on the (n_img * H_pad, W_pad) view of the same memory, its
+    copies from a 2-D tensor map over that view."""
     if img2d.is_cpu:
         return strip_sweep_flat_reference(img2d, n_img)
     rows, w = _check_imgs("strip_sweep_flat", img2d, 2)
     if rows % n_img != 0:
         raise ValueError("strip_sweep_flat: the rows do not split into n_img images")
-    return _sweep("strip_sweep_flat", "vloam_sweep_ring11_flat", img2d, n_img, rows // n_img, w,
+    _check_box("strip_sweep_flat", w)
+    return _sweep("strip_sweep_flat", "vloam_sweep_batched_flat", img2d, n_img, rows // n_img, w,
                   BATCH)
 
 

@@ -22,16 +22,16 @@ the first find the 4.3 MB of images in the L2 cache, so this is an L2 rate,
 not an HBM rate), the plain version's ms, the ms of the one PyTorch call
 that computes the same function where there is one (``library``: ``amax``
 over an ``unfold`` or ``expand`` view for G1, G2 and G5, one index call on an
-``unfold`` view for the exact gathers), ``correct=``; then G5's launch
-(blocks a repeat, clusters resident at once), the host
-microseconds of the steps of one G1, G2 and G5 call beside one ``amax``
-call's, the four exact gathers and their plain version on inputs made to
-break them (``CASES``), the five sweeps on negative images with planted
-maxima (``sweep_case``) and with a NaN (``nan_case``), G5 with its maximum
-at each end of what each block reads (``whole_image_case``), the device kernels
-one call of G1, G2, G5, G9, G10 and G11 runs (torch.profiler), and the
-card's name and power limit.  It needs a GPU and exits nonzero without
-one.
+``unfold`` view for the exact gathers), ``correct=``; then G5's and G3's
+(G4's) launches (blocks a cluster, clusters resident at once), the host
+microseconds of the steps of one G1-G5 call (G3's and G4's tensor map
+encoding among them) beside one ``amax`` call's, the four exact gathers and
+their plain version on inputs made to break them (``CASES``), the five
+sweeps on negative images with planted maxima (``sweep_case``) and with a
+NaN (``nan_case``), G5 with its maximum at each end of what each block reads
+(``whole_image_case``), the device kernels one call of G1-G5, G9, G10 and
+G11 runs (torch.profiler), and the card's name and power limit.  It needs a
+GPU and exits nonzero without one.
 """
 
 from __future__ import annotations
@@ -49,8 +49,8 @@ RUNS = 20
 LABELS = {
     "strip_sweep": "G1 strip sweep, synchronous staging",
     "strip_sweep_db": "G2 strip sweep, two-slot TMA ring",
-    "strip_sweep_batched": "G3 strip sweep, eleven-slot ring",
-    "strip_sweep_flat": "G4 eleven-slot ring, flat 2-D view",
+    "strip_sweep_batched": "G3 batched sweep, TMA from a 3-D map",
+    "strip_sweep_flat": "G4 batched sweep, TMA from a 2-D map",
     "whole_image": "G5 whole images x10, cluster a repeat",
     "gather_narrow": "G6 gather from the needed 128-B lines",
     "dma_only": "G7 transport only (band, raw corner)",
@@ -286,22 +286,33 @@ def host_windows(imgs, meta) -> np.ndarray:
                   cx[:, None, None] + off[None, None, :]]
 
 
+SLICES = 16   # column slices of sweep_case's plants: G3's and G4's 16, four to each of G1's
+
+
 def sweep_case(n_img: int = 2, h_pad: int = 384, w: int = 1408, device="cpu"):
     """Padded images made to break a strip sweep, from NumPy's
     ``default_rng(2)``: every value negative, U(-255, -1), and one planted
     value in (-1, 0) in each 8-row band of each image, all distinct, in a
-    random row of the band and a column of column slice ``band % 4`` (of G1's
-    four).  A strip's maximum is the largest plant of its five bands, so it
-    lies in a different 8-row chunk and slice from strip to strip: a sweep
-    whose accumulator starts at 0, or that combines the wrong partial maxima,
-    gives another answer."""
+    random row of the band and a random column of one of ``SLICES`` column
+    slices.  A strip's maximum is the largest plant of its five bands, so it
+    lies in a different 8-row chunk from strip to strip.  The bands that
+    hold some strip's maximum take, in order (j = 0, 1, ...), slice (j % 4)
+    * 4 + (j // 4) % 4: consecutive maxima fall in different quarters (G1's
+    and G2's four slices), and 16 of them in each of G3's and G4's 16; every
+    other band takes slice ``band % 16``.  A sweep whose accumulator starts
+    at 0, or that combines the wrong partial maxima, gives another answer."""
+    from vloam_tpu_torch.ops.gather_variants import P8, n_bases
+
     rng = np.random.default_rng(2)
     raw = rng.uniform(-255, -1, (n_img, h_pad, w))
-    bands, q = h_pad // 8, w // 4
+    bands, q = h_pad // 8, w // SLICES
     plants = -rng.permutation(np.linspace(0.05, 0.95, n_img * bands)).reshape(n_img, bands)
+    winners = sorted({(b, s + int(plants[b, s:s + P8 // 8].argmax()))
+                      for b in range(n_img) for s in range(n_bases(h_pad))})
+    slice_of = {band: (j % 4) * 4 + (j // 4) % 4 for j, band in enumerate(winners)}
     for b in range(n_img):
         for i in range(bands):
-            col = (i % 4) * q + int(rng.integers(0, q))
+            col = slice_of.get((b, i), i % SLICES) * q + int(rng.integers(0, q))
             raw[b, 8 * i + int(rng.integers(0, 8)), col] = plants[b, i]
     return torch.tensor(raw.astype(np.float32), device=device)
 
@@ -458,8 +469,9 @@ def check_cases(device="cuda", H: int = 376, W: int = 1248, n: int = 2048) -> li
     return out
 
 
-def kernels_per_call(names=("strip_sweep", "strip_sweep_db", "whole_image", "gather_resident",
-                            "gather_mma", "gather_resident_mma")) -> list[tuple]:
+def kernels_per_call(names=("strip_sweep", "strip_sweep_db", "strip_sweep_batched",
+                            "strip_sweep_flat", "whole_image", "gather_resident", "gather_mma",
+                            "gather_resident_mma")) -> list[tuple]:
     """The device kernels one wrapper call runs on the tool's inputs, by
     torch.profiler: (line, names or None) a kernel.  Run it after every
     timing: once the profiler has run, launches cost more on the host."""
@@ -479,25 +491,35 @@ def kernels_per_call(names=("strip_sweep", "strip_sweep_db", "whole_image", "gat
 
 
 def cluster_line() -> str:
-    """G5's launch on the tool's inputs, with the clusters of it the card
-    holds at once (cudaOccupancyMaxActiveClusters)."""
+    """G5's and G3's launches on the tool's inputs (G4's is G3's), with the
+    clusters of each that the card holds at once
+    (cudaOccupancyMaxActiveClusters): G3 needs all its clusters at once to
+    run in one wave."""
     from vloam_tpu_torch import kernels
     from vloam_tpu_torch.ops import gather_variants as gv
 
+    _, _, _, imgs, _ = make_inputs(torch.device("cuda"))
+    n_img, h_pad, w = imgs.shape
+    groups = n_img * gv.n_bases(h_pad) // gv.BATCH
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    resident = kernels.entry("vloam_whole_image_clusters")()
+    whole = kernels.entry("vloam_whole_image_clusters")()
+    batched = kernels.entry("vloam_sweep_batched_clusters")(w)
     return (f"G5 launch: a cluster of {WHOLE_CTAS} blocks a repeat x {gv.REPS} repeats = "
             f"{WHOLE_CTAS * gv.REPS} blocks on {sms} SMs; clusters resident at once: "
-            f"{resident} (cudaOccupancyMaxActiveClusters)")
+            f"{whole} (cudaOccupancyMaxActiveClusters).  G3/G4 launch: a cluster of "
+            f"{gv.GROUP_CTAS} blocks a group x {groups} groups = {gv.GROUP_CTAS * groups} blocks "
+            f"of {gv.batched_smem(w)} B of slots; clusters resident at once: {batched} "
+            f"(needs {groups})")
 
 
 def host_steps(calls: int = 1000) -> list[str]:
-    """The host microseconds of each step of one G1, G2 and G5 call on the
-    tool's inputs (the wrapper's checks, the output's allocation, the stream
-    handle, the ctypes call with the launch inside it), of the whole wrapper
-    and of the one ``amax`` call that computes the same function; and of the
-    ctypes call of G6, a launch without a cluster: one line each, the mean
-    over ``calls`` calls by ``time.perf_counter_ns``."""
+    """The host microseconds of each step of one G1, G2, G3, G4 and G5 call
+    on the tool's inputs (the wrapper's checks, the output's allocation, the
+    stream handle, for G3 and G4 the tensor map's encoding alone, the ctypes
+    call with the encoding and the launch inside it), of the whole wrapper
+    and of the one ``amax`` call that computes the same function (G1, G2,
+    G5); and of the ctypes call of G6, a launch without a cluster: one line
+    each, the mean over ``calls`` calls by ``time.perf_counter_ns``."""
     import time
 
     from vloam_tpu_torch import kernels
@@ -512,22 +534,31 @@ def host_steps(calls: int = 1000) -> list[str]:
     patches = torch.empty((meta.shape[1], gv.P, gv.P), dtype=torch.float32, device=dev)
     stream = kernels.stream_ptr(dev)
 
-    def sweep_steps(name, entry):
-        fn = kernels.entry(entry)
-        return {
-            "checks": lambda: gv._check_imgs(name, imgs, 3),
-            "allocation": lambda: imgs.new_empty(strips),
-            "stream": lambda: kernels.stream_ptr(dev),
-            "ctypes call and launch": lambda: fn(imgs.data_ptr(), n_img, h_pad, w,
-                                                 out.data_ptr(), stream),
-            "whole wrapper": lambda: getattr(gv, name)(imgs),
-            "library call (amax)": lambda: imgs.unfold(1, gv.P8, 8).amax(dim=(2, 3)),
-        }
+    def sweep_steps(name, entry, x=imgs, args=(imgs,), flat=None):
+        """flat: None for G1 and G2; 0 (G3) or 1 (G4), whose tensor map is
+        encoded inside the ctypes call and timed alone as a step too."""
+        fn, n_out = kernels.entry(entry), strips if flat is None else strips // gv.BATCH
+        check = ((lambda: gv._check_imgs(name, x, x.dim())) if flat is None else
+                 (lambda: (gv._check_imgs(name, x, x.dim()), gv._check_box(name, w))))
+        steps = {"checks": check, "allocation": lambda: x.new_empty(n_out),
+                 "stream": lambda: kernels.stream_ptr(dev)}
+        if flat is not None:
+            encode = kernels.entry("vloam_sweep_batched_encode")
+            steps["tensor map"] = lambda: encode(x.data_ptr(), n_img, h_pad, w, flat)
+        steps["ctypes call and launch"] = lambda: fn(x.data_ptr(), n_img, h_pad, w,
+                                                     out.data_ptr(), stream)
+        steps["whole wrapper"] = lambda: getattr(gv, name)(*args)
+        if flat is None:
+            steps["library call (amax)"] = lambda: imgs.unfold(1, gv.P8, 8).amax(dim=(2, 3))
+        return steps
 
     whole, narrow = kernels.entry("vloam_whole_image"), kernels.entry("vloam_gather_narrow")
     groups = {
         "G1": sweep_steps("strip_sweep", "vloam_sweep_sync"),
         "G2": sweep_steps("strip_sweep_db", "vloam_sweep_tma_ring"),
+        "G3": sweep_steps("strip_sweep_batched", "vloam_sweep_batched", flat=0),
+        "G4": sweep_steps("strip_sweep_flat", "vloam_sweep_batched_flat", img2d, (img2d, n_img),
+                          flat=1),
         "G5": {
             "checks": lambda: gv._check_imgs("whole_image", img2d, 2),
             "allocation": lambda: img2d.new_empty(gv.REPS),
