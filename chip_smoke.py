@@ -60,11 +60,28 @@ Phases, each printed on its own lines:
    ``--descriptor-match``;
 9. the full step in (D) with VO in descriptor-match mode
    (``optical_flow_match=False``, ORB descriptors on the single-image patch
-   gather, brute-force Hamming matching), 12 frames.
+   gather, brute-force Hamming matching), 12 frames;
+10. the ``close()`` epilogue: the ring course of
+   tests/test_driver_loop_closure.py (56 frames, one lap) through
+   ``VloamDriver(loop_closure=True, ...).process`` at full ``kitti_hdl64``
+   width, then ``close()``: keyframe features, revisit detection, the
+   seed-batched registration (B1 and the batched B3, one launch each per
+   outer iteration) and the banded pose-graph solve, with the ms of each
+   stage per loop pair behind a device sync, the launches per pair, the
+   arbiter's single-problem k-NN (every seed's sample stacked as its
+   queries) bit-equal to its plain version on the inputs it was given, and
+   the raw and refined trajectories against ground truth.
 
-Then the device kernels one Gauss-Newton wrapper call, and one call of G1,
-G2, G5, G9, G10 and G11, runs (torch.profiler, after every timed phase: once it has
-run, launches cost more on the host),
+Phase 3 also holds the batched B3 (``solve_pose_gn_lidar_batched``, seven
+seeds of frame 15's LO solve) to its plain version, its batch of one to the
+unbatched wrapper's launch (the same entry, batch strides 0) bit for bit,
+and the k-NN pair on seven seeds' stacked queries to seven unbatched calls
+row by row.
+
+Then the device kernels one Gauss-Newton wrapper call (the batched one
+included), and one call of G1, G2, G5, G9, G10 and G11, runs
+(torch.profiler, after every timed phase: once it has run, launches cost
+more on the host),
 one JSON line of per-kernel results, the card's name and power limit, and
 last the line ``{"ok": true, "device": {...}}``.  Any failure raises
 and exits nonzero before that line; so does a machine without CUDA.
@@ -125,6 +142,11 @@ GN_LIDAR_OPS = 100     # per live residual and iteration (csrc/gn_lidar.cu)
 GN_VO_OPS = 150        # per live match and iteration (csrc/gn_vo.cu)
 
 MIN_ORB_MATCHES = 100  # valid matches a frame in descriptor mode (tests/test_orb.py:56)
+N_SEEDS = 7            # loop closure's seeds: the chain estimate and 6 coarse peaks
+# the ring course of tests/test_driver_loop_closure.py (phase 10)
+RING_FRAMES, RING_SPEED = 56, 1.1
+RING_KW = dict(keyframe_every=5, loop_radius=6.0, loop_min_travel=25.0, loop_drift_rate=0.02,
+               loop_min_gap=3)
 BRISK_BLUR_SIGMAS = (0.8, 1.8, 3.2)   # the blur stack of one BRISK octave (ops/brisk.py:41)
 
 KERNELS = {   # name: (source under vloam_tpu_torch/csrc, the TPU kernel it replaces)
@@ -132,6 +154,9 @@ KERNELS = {   # name: (source under vloam_tpu_torch/csrc, the TPU kernel it repl
     "knn": ("knn.cu", "vloam_tpu/ops/pallas_knn.py:53"),
     "gn_lidar": ("gn_lidar.cu", "vloam_tpu/ops/pallas_gn.py:138"),
     "gn_vo": ("gn_vo.cu", "vloam_tpu/ops/pallas_gn.py:208"),
+    # the same TPU kernel under jax.vmap over loop closure's seeds
+    # (vloam_tpu/parallel/loop_closure.py:299-311): a problem axis on its grid
+    "gn_lidar_batched": ("gn_lidar.cu", "vloam_tpu/ops/pallas_gn.py:138"),
     "gather_patches": ("gather_patches.cu", "vloam_tpu/ops/pallas_gather.py:57"),
     "strip_sweep": ("gather_sweeps.cu", "tools/gather_experiments.py:107"),
     "strip_sweep_db": ("gather_sweeps.cu", "tools/gather_experiments.py:143"),
@@ -283,6 +308,7 @@ def main() -> int:
     launches = {"knn": check_single_association(cfg, calls, card)}
     gn_sites = {site: calls[(KERNEL_FRAME, kind, site)][0][0]
                 for site, kind in (("LO", "gn"), ("MO", "gn"), ("VO", "gn_vo"))}
+    gn_sites["LO batched"] = batched_gn_args(gn_sites["LO"])
     del calls
     launches["gather_patches_stack"] = check_stack_path(cfg, dframes[KERNEL_FRAME][0], card)
     launches.update(check_variants(results, card))
@@ -299,6 +325,7 @@ def main() -> int:
     launches["gather_patches_single"] = check_descriptor_mode(cfg, ext, dframes, poses, card,
                                                               step_syncs)
     del dframes
+    launches["gn_lidar_batched"] = check_close(cfg, card)
     count_gn_kernels(gn_sites, card)
     count_gather_kernels(card)
 
@@ -540,6 +567,7 @@ def check_kernels(cfg, ext, dframes, card):
     check_correspondences(cfg, args, kw, gn_args)
 
     check_gn(calls, timed, results, card)
+    check_batched(calls, timed, results, card)
 
     gathers = calls[(1, "gather", "KLT")]
     assert len(gathers) == 3, f"frame 1 made {len(gathers)} patch gathers, want 3"
@@ -613,6 +641,250 @@ def check_gn(calls, timed, results, card):
         print(f"  {gn_check.launch_line(f'gn_{kind} {label}', kind, args, card)}")
 
 
+def seed_poses(n, dev, scale=1.0):
+    """n small SE(3) perturbations (the first the identity), from a seed."""
+    from vloam_tpu_torch import geometry as geo
+
+    rng = np.random.default_rng(5)
+    aa = rng.normal(0, 0.02 * scale, (n, 3)).astype(np.float32)
+    t = rng.normal(0, 0.2 * scale, (n, 3)).astype(np.float32)
+    aa[0], t[0] = 0.0, 0.0
+    q = geo.angle_axis_to_quat(torch.tensor(aa))
+    return geo.pose_from_qt(q, torch.tensor(t)).to(dev)
+
+
+def batched_gn_args(lo_args, n=N_SEEDS):
+    """Frame 15's LO solve under ``n`` seeds, laid out as solve_f2f_batched
+    lays them out: pose0 moved by each seed, the feature points one view for
+    all (batch stride 0), the other rows stacked."""
+    from vloam_tpu_torch import geometry as geo
+
+    pose0, edge, plane, *rest = lo_args
+    poses = geo.pose_compose(seed_poses(n, pose0.device), pose0[None].expand(n, -1))
+    stack = lambda x: torch.stack([x] * n)  # noqa: E731
+    return (poses.contiguous(), (edge[0].expand(n, -1, -1), *map(stack, edge[1:])),
+            (plane[0].expand(n, -1, -1), *map(stack, plane[1:])), *rest)
+
+
+def check_batched(calls, timed, results, card):
+    """Phase 3, the batched B3 and the stacked B1 of loop closure's
+    registration, at the loop path's shapes (S = 7 seeds of frame 15's LO
+    problems: Be = 768, Bs = 1536; queries 7 x 768 and 7 x 1536)."""
+    from vloam_tpu_torch import geometry as geo
+    from vloam_tpu_torch.ops import fused_gn, fused_knn, knn
+    from vloam_tpu_torch.tools import gn_check, knn_check
+    from vloam_tpu_torch.tools.gather_experiments import graph_ms
+
+    last = KERNEL_FRAME
+    lo_args = calls[(last, "gn", "LO")][0][0]
+    args = batched_gn_args(lo_args)
+    poses, edge, plane, iters, delta, lam = args
+    S, be, bs = poses.shape[0], edge[0].shape[1], plane[0].shape[1]
+    got = fused_gn.solve_pose_gn_lidar_batched(*args)
+    ref = fused_gn.solve_pose_gn_lidar_batched_reference(*args)
+    torch.cuda.synchronize()
+    err, equal = 0.0, 0
+    for k in range(S):
+        err = max(err, gn_check._close(f"gn_lidar_batched seed {k}", got[k], ref[k],
+                                       "the plain version"))
+        one = fused_gn.solve_pose_gn_lidar(poses[k], tuple(x[k] for x in edge),
+                                           tuple(x[k] for x in plane), iters, delta, lam)
+        equal += int(torch.equal(one, got[k]))
+    results["gn_lidar_batched"]["err"] = err
+    single = fused_gn.solve_pose_gn_lidar_batched(poses[:1], tuple(x[:1] for x in edge),
+                                                  tuple(x[:1] for x in plane), iters, delta, lam)
+    unbatched = fused_gn.solve_pose_gn_lidar(poses[0], *lo_args[1:])
+    assert torch.equal(single[0], unbatched), \
+        f"gn_lidar_batched: batch of one {single[0]} differs from the unbatched launch {unbatched}"
+    print(f"  gn_lidar_batched S={S} Be={be} Bs={bs}: within the plain version's bound on every "
+          f"seed; batch of one bit-equal to the unbatched launch; {equal} of {S} seeds bit-equal "
+          f"to an unbatched launch each")
+    live = int(edge[3].sum()) + int(plane[3].sum())
+    # each input read once: the shared feature points once, the rest per seed
+    nbytes = 12 * be + 12 * bs + S * (25 * be + 17 * bs + 56)
+    timed("gn_lidar_batched", f"S={S} Be={be} Bs={bs} ({live} live)",
+          lambda: fused_gn.solve_pose_gn_lidar_batched(*args),
+          lambda: fused_gn.solve_pose_gn_lidar_batched_reference(*args),
+          GN_LIDAR_OPS * live * iters, nbytes, graph=True)
+    one_ms = graph_ms(lambda: fused_gn.solve_pose_gn_lidar(*lo_args))
+    print(f"  gn_lidar_batched: {results['gn_lidar_batched']['device_ms']:.4f} ms a batched call "
+          f"inside a replayed CUDA graph; the unbatched LO call {one_ms:.4f} ms, {S} of them "
+          f"{S * one_ms:.4f} ms [{card}]")
+
+    # the k-NN pair on the seeds' stacked queries, against one call a seed
+    kargs, kw = calls[(last, "knn", "LO")][0]
+    qa, ca, ma, ka, qb, cb, mb, kb = kargs
+    seeds = seed_poses(S, qa.device)
+    qas = [geo.pose_apply(seeds[k], qa) for k in range(S)]
+    qbs = [geo.pose_apply(seeds[k], qb) for k in range(S)]
+    sa, sb = torch.cat(qas), torch.cat(qbs)
+    stacked = fused_knn.knn_pair(sa, ca, ma, ka, sb, cb, mb, kb, **kw)
+    ref = fused_knn.knn_pair_reference(sa, ca, ma, ka, sb, cb, mb, kb, **kw)
+    for grp in range(2):
+        knn_check.assert_bit_equal(f"knn_pair stacked group {grp}", stacked[grp], ref[grp])
+    for k in range(S):
+        one = fused_knn.knn_pair(qas[k], ca, ma, ka, qbs[k], cb, mb, kb, **kw)
+        for grp, m in ((0, qa.shape[0]), (1, qb.shape[0])):
+            rows = slice(k * m, (k + 1) * m)
+            assert torch.equal(stacked[grp][0][rows], one[grp][0]) and \
+                torch.equal(stacked[grp][1][rows], one[grp][1]), \
+                f"knn_pair stacked: seed {k} group {grp} differs from its unbatched call"
+    plans = [knn.knn_plan(q.shape[0], c.shape[0]) for q, c in ((sa, ca), (sb, cb))]
+    st_ms = graph_ms(lambda: fused_knn.knn_pair(sa, ca, ma, ka, sb, cb, mb, kb, **kw))
+    one_ms = graph_ms(lambda: fused_knn.knn_pair(qa, ca, ma, ka, qb, cb, mb, kb, **kw))
+    print(f"  knn_pair stacked {sa.shape[0]}x{ca.shape[0]} k={ka} + {sb.shape[0]}x{cb.shape[0]} "
+          f"k={kb} (plans {plans}): bit-equal to the plain version and, row by row, to {S} "
+          f"unbatched calls; {st_ms:.4f} ms a call inside a replayed CUDA graph, one seed's call "
+          f"{one_ms:.4f} ms, {S} of them {S * one_ms:.4f} ms [{card}]")
+
+
+def ring_scene(radius_course: float) -> np.ndarray:
+    """Boxes and poles ringing a circular course centred at (0, r): the scene
+    of tests/test_driver_loop_closure.py (a copy: that file imports jax)."""
+    rng = np.random.default_rng(5)
+    cx, cy = 0.0, radius_course
+    boxes = []
+    for i in range(16):
+        a = i * 2 * np.pi / 16
+        r = radius_course + 14.0 + rng.uniform(-2, 2)
+        x, y = cx + r * np.cos(a), cy + r * np.sin(a)
+        w, d, h = rng.uniform(4, 8), rng.uniform(4, 8), rng.uniform(5, 12)
+        boxes.append([x, y, -1.7, x + w, y + d, -1.7 + h])
+    for i in range(20):
+        a = (i + 0.5) * 2 * np.pi / 20
+        r = radius_course + 8.0 + rng.uniform(-1, 1)
+        x, y = cx + r * np.cos(a), cy + r * np.sin(a)
+        boxes.append([x, y, -1.7, x + 0.3, y + 0.3, 3.0])
+    return np.array(boxes, np.float64)
+
+
+def check_close(cfg, card):
+    """Phase 10: the close() epilogue on the ring course, driven the way
+    tests/test_driver_loop_closure.py drives it.  Returns the batched B3's
+    launches in the run."""
+    from vloam_tpu_torch.data import synthetic
+    from vloam_tpu_torch.models.frame_graph import kitti_default_extrinsics
+    from vloam_tpu_torch.ops import fused_gn, fused_knn, knn
+    from vloam_tpu_torch.parallel import loop_closure as lc
+    from vloam_tpu_torch.runtime import driver as drv
+
+    n = RING_FRAMES
+    yaw_rate = 2 * np.pi / n
+    print(f"== phase 10: close() epilogue (pose graph + loop closure), ring course, kitti_hdl64, "
+          f"{n} frames, n_azimuth=1800 [{card}]")
+    poses = synthetic.straight_trajectory(n, speed=RING_SPEED, yaw_rate=yaw_rate)
+    scene = ring_scene(RING_SPEED / yaw_rate)
+    t0 = time.perf_counter()
+    clouds = [synthetic.simulate_scan(R, t, scene, n_azimuth=1800, noise=0.01, seed=i)
+              for i, (R, t) in enumerate(poses)]
+    print(f"  host data: {n} scans, {int(np.mean([len(c) for c in clouds]))} points on average, "
+          f"{time.perf_counter() - t0:.1f} s (not timed below)")
+    fresh_device(torch.device("cuda", 0))
+    stages = collections.defaultdict(list)
+    pair_launches = []
+
+    def timed_stage(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stages[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    register = drv.register_loop
+
+    def counted_register(*args, **kw):
+        before = (fused_knn.LAUNCHES, fused_gn.LAUNCHES_BATCHED, knn.LAUNCHES)
+        out = register(*args, **kw)
+        pair_launches.append(tuple(a - b for a, b in zip(
+            (fused_knn.LAUNCHES, fused_gn.LAUNCHES_BATCHED, knn.LAUNCHES), before)))
+        return out
+
+    arbiter_calls = []   # the arbiter's nn1 inputs: every seed's sample stacked
+
+    def recorded_nn1(*args, **kw):
+        arbiter_calls.append((args, kw))
+        return knn.nn1(*args, **kw)
+
+    fused_knn.LAUNCHES = fused_gn.LAUNCHES = fused_gn.LAUNCHES_BATCHED = knn.LAUNCHES = 0
+    driver = drv.VloamDriver(cfg, kitti_default_extrinsics("cuda"), loop_closure=True, **RING_KW)
+    frame_ms = []
+    for cloud in clouds:
+        t = time.perf_counter()
+        driver.process(None, cloud)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+    assert fused_gn.LAUNCHES_BATCHED == 0
+    with mock.patch.object(drv.VloamDriver, "_keyframe_features",
+                           timed_stage("features", drv.VloamDriver._keyframe_features)), \
+            mock.patch.object(lc, "coarse_align", timed_stage("coarse_align", lc.coarse_align)), \
+            mock.patch.object(lc, "solve_f2f_batched",
+                              timed_stage("registration", lc.solve_f2f_batched)), \
+            mock.patch.object(lc, "tight_inlier_frac",
+                              timed_stage("tight_inlier_frac", lc.tight_inlier_frac)), \
+            mock.patch.object(lc, "nn1", recorded_nn1), \
+            mock.patch.object(drv, "register_loop", counted_register), \
+            mock.patch.object(drv, "optimize_pose_graph_banded",
+                              timed_stage("pose_graph", drv.optimize_pose_graph_banded)):
+        t = time.perf_counter()
+        driver.close()
+        close_s = time.perf_counter() - t
+    batched = fused_gn.LAUNCHES_BATCHED
+    check_arbiter_nn1(arbiter_calls, card)
+    report = driver.refine_report
+    gt = np.stack([t for _, t in poses])
+    mo = np.stack([h[2] for h in driver._world_hist])
+    refined = np.asarray(driver._refined, np.float64)
+    assert refined.shape == (n, 7) and np.isfinite(refined).all()
+    raw_ate = float(np.mean(np.linalg.norm(mo[:, 4:] - gt, axis=1)))
+    ref_ate = float(np.mean(np.linalg.norm(refined[:, 4:] - gt, axis=1)))
+    raw_end = float(np.linalg.norm(mo[-1, 4:] - gt[-1]))
+    ref_end = float(np.linalg.norm(refined[-1, 4:] - gt[-1]))
+    pairs = len(pair_launches)
+    print(f"  {ms_line(frame_ms, 5, card)}")
+    print(f"  keyframes {len(driver._keyframes)}; detections (registered pairs) {pairs}; accepted "
+          f"loop factors {report['loop_factors']}; refine_report {report}")
+    for name in ("features", "coarse_align", "registration", "tight_inlier_frac"):
+        v = stages[name]
+        per = sum(v) / max(pairs, 1)
+        print(f"  {name}: {len(v)} calls, {sum(v):.3f} ms in all, {per:.3f} ms a pair "
+              f"(host clock behind device syncs) [{card}]")
+    print(f"  launches per registered pair (knn_pair, gn_lidar_batched, knn): {pair_launches}")
+    pg = stages["pose_graph"]
+    print(f"  pose-graph solves: {len(pg)}, {', '.join(f'{v:.1f}' for v in pg)} ms (banded, W={n}, "
+          f"8 iterations) [{card}]")
+    print(f"  close() {close_s:.3f} s [{card}]")
+    print(f"  MO vs ground truth: ATE raw {raw_ate:.4f} m, refined {ref_ate:.4f} m; end error raw "
+          f"{raw_end:.4f} m, refined {ref_end:.4f} m over {RING_SPEED * (n - 1):.1f} m")
+    assert pairs >= 1 and all(p[:2] == (5, 5) for p in pair_launches), pair_launches
+    assert batched == 5 * pairs, (batched, pairs)
+    assert report["loop_factors"] >= 1, f"no loop factor accepted on the closed ring: {report}"
+    assert ref_end <= raw_end, f"refined end error {ref_end} exceeds the raw one {raw_end}"
+    del driver
+    return batched
+
+
+def check_arbiter_nn1(arbiter_calls, card):
+    """B5 (``knn.nn1``) at the shape the arbiter gives it in phase 10, every
+    seed's strided sample stacked as the queries: bit-equal to its plain
+    version on each call's inputs (after the counts were read)."""
+    from vloam_tpu_torch.ops import knn
+    from vloam_tpu_torch.tools import knn_check
+
+    assert arbiter_calls, "phase 10: the arbiter made no nn1 call"
+    for i, ((q, c, m), kw) in enumerate(arbiter_calls):
+        got = knn.nn1(q, c, m, **kw)
+        want = knn.nn1_reference(q, c, m, **kw)
+        knn_check.assert_bit_equal(f"nn1 arbiter call {i}", tuple(x[:, None] for x in got),
+                                   tuple(x[:, None] for x in want))
+    shapes = sorted({(q.shape[0], c.shape[0]) for (q, c, _), _ in arbiter_calls})
+    plans = [knn.knn_plan(mq, nc) for mq, nc in shapes]
+    print(f"  knn (nn1) in the arbiter: {len(arbiter_calls)} calls, queries x candidates "
+          f"{shapes} (plans {plans}), each bit-equal to the plain version [{card}]")
+
+
 def count_gn_kernels(sites, card):
     """The device kernels one GN wrapper call runs, by torch.profiler, on
     frame 15's first LO, MO and VO solves: one each, or "not measured" where
@@ -622,10 +894,19 @@ def count_gn_kernels(sites, card):
     1.5-2x and every frame median after it)."""
     from vloam_tpu_torch.tools import gn_check
 
+    from vloam_tpu_torch.ops import fused_gn
+
     print(f"== device kernels per GN wrapper call (torch.profiler) [{card}]")
     for site, args in sites.items():
-        kind = "vo" if site == "VO" else "lidar"
-        line, names = gn_check.kernels_line(f"gn_{kind} {site}", kind, args, card)
+        if site == "LO batched":
+            names = gn_check.device_kernels(lambda: fused_gn.solve_pose_gn_lidar_batched(*args))
+            line = (f"gn_lidar_batched {site} S={args[0].shape[0]}: device kernels per wrapper "
+                    f"call " + ("not measured (the profiler showed no device event)"
+                                if names is None else f"{len(names)} ({names[0][:40]})")
+                    + f" [{card}]")
+        else:
+            kind = "vo" if site == "VO" else "lidar"
+            line, names = gn_check.kernels_line(f"gn_{kind} {site}", kind, args, card)
         print(f"  {line}")
         assert names is None or len(names) == 1, line
 

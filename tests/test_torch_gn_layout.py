@@ -308,3 +308,136 @@ def test_masked_rows_move_nothing(rng, kind):
     np.testing.assert_allclose(finite.numpy(), base.numpy(), atol=1e-6, rtol=0)
     np.testing.assert_allclose(np.asarray(finite_jax), np.asarray(base_jax), atol=1e-6, rtol=0)
     assert bool(torch.isnan(nan).all()), nan
+
+
+# ---------------------------------------------------------------------------
+# the batched lidar solve (loop closure's seeds): its layout and plain version
+# ---------------------------------------------------------------------------
+
+def _batched_args(rng, S=3, be=24, bs=40, device="cpu"):
+    """S problems as ``solve_f2f_batched`` passes them: the feature points
+    one (B, 4)[:, :3] view expanded over the batch (batch stride 0), the
+    rest stacked."""
+    probs = [_lidar_problem(rng, be=be, bs=bs) for _ in range(S)]
+    p_e = _view(probs[0][0][0], device).expand(S, -1, -1)
+    p_s = _view(probs[0][1][0], device).expand(S, -1, -1)
+    stack = lambda k, i: torch.stack([torch.as_tensor(np.array(p[k][i]), device=device)  # noqa: E731
+                                      for p in probs])
+    pose = _identity(device)[None].repeat(S, 1)
+    pose[:, 4] = torch.arange(S, dtype=F32) * 0.1
+    return pose, (p_e, stack(0, 1), stack(0, 2), stack(0, 3)), (p_s, stack(1, 1), stack(1, 2),
+                                                                 stack(1, 3))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_batched_layout_takes_the_call_site_views(rng, device):
+    pose, edge, plane = _batched_args(rng, device=device)
+    arrays, strides, batch, S, be, bs = fused_gn.lidar_batched_layout(pose, edge, plane)
+    assert (S, be, bs) == (3, 24, 40) and len(arrays) == 9
+    # pose0, ep (expanded view), ea, eb, ev, pp (expanded view), pn, pd, pv
+    assert strides == [1, 4, 3, 3, 1, 4, 3, 1, 1]
+    assert batch == [7, 0, 72, 72, 24, 0, 120, 40, 40]
+
+
+@pytest.mark.parametrize("fault", ["f64 a", "float mask", "short n", "unbatched pose",
+                                   "strided last dim", "batch of 2 in d"])
+def test_batched_layout_refuses(rng, fault):
+    pose, (ep, ea, eb, ev), (pp, pn, pd, pv) = _batched_args(rng)
+    if fault == "f64 a":
+        ea = ea.to(F64)
+    elif fault == "float mask":
+        ev = ev.to(F32)
+    elif fault == "short n":
+        pn = pn[:, 1:]
+    elif fault == "unbatched pose":
+        pose = pose[0]
+    elif fault == "strided last dim":
+        eb = torch.zeros((3, 24, 6))[:, :, ::2]
+    else:
+        pd = pd[:2]
+    with pytest.raises((ValueError, IndexError)):
+        fused_gn.lidar_batched_layout(pose, (ep, ea, eb, ev), (pp, pn, pd, pv))
+
+
+def test_batched_plain_is_the_plain_solve_per_problem(rng):
+    """The batched wrapper on CPU tensors is its plain version, and that is
+    the unbatched plain version on each problem, bit for bit; a meta tensor
+    is refused, not solved."""
+    pose, edge, plane = _batched_args(rng)
+    got = fused_gn.solve_pose_gn_lidar_batched(pose, edge, plane, ITERS, HUBER, LM)
+    assert got.shape == (3, 7)
+    for k in range(3):
+        want = fused_gn.solve_pose_gn_lidar_reference(
+            pose[k], tuple(x[k] for x in edge), tuple(x[k] for x in plane), ITERS, HUBER, LM)
+        assert torch.equal(got[k], want)
+    meta = [x.to("meta") for x in (pose, *edge, *plane)]
+    with pytest.raises(ValueError):
+        fused_gn.solve_pose_gn_lidar_batched(meta[0], tuple(meta[1:5]), tuple(meta[5:]), ITERS,
+                                             HUBER, LM)
+    assert fused_gn.LAUNCHES_BATCHED == 0
+
+
+def test_batched_entry_signature_matches_the_source():
+    """The ctypes signature of ``vloam_gn_lidar`` (the batched entry both
+    lidar wrappers launch) has one argument for each parameter of the C entry
+    in csrc/gn_lidar.cu, of the same kind."""
+    import re
+
+    from vloam_tpu_torch import kernels
+
+    text = (kernels.SRC_DIR / "gn_lidar.cu").read_text()
+    m = re.search(r'extern "C" int vloam_gn_lidar\((.*?)\)\s*\{', text, re.S)
+    params = [p.strip() for p in m.group(1).split(",")]
+    kinds = {"int": kernels._I, "long long": kernels._L, "float": kernels._F}
+    want = [kernels._P if "*" in p else kinds[p.rsplit(" ", 1)[0].replace("const ", "")]
+            for p in params]
+    assert kernels._SIGNATURES["vloam_gn_lidar"] == want
+
+
+def test_lidar_wrappers_launch_one_entry(rng, monkeypatch):
+    """Both lidar wrappers launch ``vloam_gn_lidar`` once with an argument
+    list of its signature: the unbatched one as a batch of one with every
+    batch stride 0, the batched one with S and the layout's batch strides;
+    ``gn_check.lidar_args`` gives the same list for the batch of one, and the
+    older unbatched form fits its own signature.  (Recorded with a stand-in
+    library on ``meta`` tensors; the pointers are 0 there.)"""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.tools import gn_check
+
+    calls = []
+
+    class Lib:
+        def vloam_gn_lidar(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(kernels, "lib", Lib)
+    monkeypatch.setattr(kernels, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(fused_gn, "_pointers", lambda name, arrays, strides: [
+        v for a, s in zip(arrays, strides) for v in (a.data_ptr(), s)])
+    monkeypatch.setattr(fused_gn, "LAUNCHES", 0)
+    monkeypatch.setattr(fused_gn, "LAUNCHES_BATCHED", 0)
+    sig = kernels._SIGNATURES["vloam_gn_lidar"]
+
+    pose, edge, plane = _batched_args(rng, device="meta")
+    one = (pose[0], tuple(x[0] for x in edge), tuple(x[0] for x in plane))
+    fused_gn.solve_pose_gn_lidar(*one, ITERS, HUBER, LM)
+    fused_gn.solve_pose_gn_lidar_batched(pose, edge, plane, ITERS, HUBER, LM)
+    assert (fused_gn.LAUNCHES, fused_gn.LAUNCHES_BATCHED) == (1, 1)
+    (single, batched) = calls
+    assert len(single) == len(batched) == len(sig)
+    _, strides, be, bs = fused_gn.lidar_layout(*one)
+    _, _, batch, S, _, _ = fused_gn.lidar_batched_layout(pose, edge, plane)
+    for args, n, bstrides in ((single, 1, [0] * 9), (batched, S, batch)):
+        assert args[0] == n and args[16] == be and args[29] == bs
+        per_array = [a for i in range(9)
+                     for a in args[1 + 3 * i + (i >= 5): 4 + 3 * i + (i >= 5)]]
+        assert per_array[1::3] == strides and per_array[2::3] == bstrides
+        assert args[30:35] == (ITERS, float(HUBER), float(LM), 0, 7)
+
+    out = torch.empty(7, device="meta")
+    arrays = fused_gn.lidar_layout(*one)[0]
+    assert gn_check.lidar_args(True, arrays, strides, be, bs, ITERS, float(HUBER), float(LM),
+                               out) + (0,) == single
+    old = gn_check.lidar_args(False, arrays, strides, be, bs, ITERS, HUBER, LM, out)
+    assert len(old) + 1 == len(gn_check.UNBATCHED_SIGNATURE)

@@ -205,9 +205,11 @@ def test_gridding_copy_equals_reference():
 
 def test_port_never_imports_jax():
     """Importing the port and running a small slice (two frames, so LO and
-    MO both solve), two frames of the full step, and the runtime entry point
-    (VloamDriver with a checkpoint, trajectory export and the CLI's ``main``)
-    loads no jax module."""
+    MO both solve), two frames of the full step, the runtime entry point
+    (VloamDriver with a checkpoint, keyframes, trajectory export and the
+    CLI's ``main`` with --refine --loop-closure) and the close() epilogue's
+    modules (keyframe features, a loop registration, a banded pose-graph
+    solve) loads no jax module."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -242,14 +244,28 @@ def test_port_never_imports_jax():
         from vloam_tpu_torch.utils import kitti_eval, trajectory
         with tempfile.TemporaryDirectory() as tmp:
             drv = driver.VloamDriver(cfg, ext, out_dir=tmp, checkpoint_dir=tmp + "/ck",
-                                     checkpoint_every=2, device="cpu")
+                                     checkpoint_every=2, refine=True, loop_closure=True,
+                                     keyframe_every=1, device="cpu")
             for img, g, m, _, _ in frames:
                 drv.process_grid(img, g, m)
             drv.close()
             assert drv.restore_checkpoint(tmp + "/ck/ckpt_000002") == 2
+            assert sorted(drv._keyframes) == [0, 1]
             assert trajectory.load_kitti_trajectory(tmp + "/MO1.txt").shape == (2, 3, 4)
+            import torch
+            from vloam_tpu_torch.parallel import loop_closure, pose_graph
+            f0, f1 = drv._keyframe_features(0), drv._keyframe_features(1)
+            z, _, _ = loop_closure.register_loop(f0, f1, torch.tensor([0, 0, 0, 1.0, 0.5, 0, 0]),
+                                                 cfg, outer_iters=1)
+            assert np.isfinite(z).all()
+            steps = torch.tensor([[0, 0, 0, 1.0, 0.5, 0, 0]] * 3)
+            chain = pose_graph.odometry_factors(steps)
+            loop = loop_closure.loop_factors([(0, 3)], [np.array([0, 0, 0, 1.0, 1.6, 0, 0])])
+            start = torch.tensor([[0, 0, 0, 1.0, 0.5 * k, 0, 0] for k in range(4)])
+            assert torch.isfinite(pose_graph.optimize_pose_graph_banded(start, chain, loop)).all()
         C.kitti_hdl64 = lambda: cfg
         cli.main(["--device", "cpu", "--frames", "2", "--json"])
+        cli.main(["--device", "cpu", "--frames", "3", "--json", "--refine", "--loop-closure"])
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
         assert not bad, bad
         print("ok")

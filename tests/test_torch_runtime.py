@@ -403,8 +403,7 @@ def test_default_device_raises_without_a_gpu():
         tdriver.run_synthetic(tcfg, n_frames=1, verbose=False)
 
 
-@pytest.mark.parametrize("kw,roadmap", [(dict(refine=True), "A10"), (dict(loop_closure=True), "A10"),
-                                        (dict(debug_dir="dbg"), "A9")])
+@pytest.mark.parametrize("kw,roadmap", [(dict(debug_dir="dbg"), "A5")])
 def test_unported_driver_options_raise(kw, roadmap):
     tcfg = configs(SC_TINY, MC_TINY)[1]
     with pytest.raises(NotImplementedError, match=roadmap):
@@ -451,8 +450,7 @@ def test_cli_synthetic_json(tmp_path):
         assert ttraj.load_kitti_trajectory(str(tmp_path / name)).shape == (3, 3, 4)
 
 
-@pytest.mark.parametrize("flag,roadmap", [("--refine", "A10"), ("--loop-closure", "A10"),
-                                          ("--clahe", "A9")])
+@pytest.mark.parametrize("flag,roadmap", [("--clahe", "A5")])
 def test_cli_unported_flag_exits_with_not_implemented(flag, roadmap):
     res = run_cli("--device", "cpu", "--dataset", "synthetic", "--frames", "2", "--json", flag)
     assert res.returncode != 0

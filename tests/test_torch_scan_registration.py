@@ -52,14 +52,11 @@ def test_features_match_reference(both, cloud, atol):
     np.testing.assert_allclose(getattr(got, cloud).numpy(), getattr(want, cloud), atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("change", ["no_lf_table", "exclude_unreliable"])
+@pytest.mark.parametrize("change", ["exclude_unreliable"])
 def test_unported_options_raise(both, change):
     _, _, (grid, gmask, n_per_ring, lf) = both
-    cfg, table = TCFG, (torch.tensor(lf[0]), torch.tensor(lf[1]), lf[2])
-    if change == "no_lf_table":
-        table = None
-    else:
-        cfg = tconfig.ScanConfig(**SC, exclude_unreliable=True)
+    table = (torch.tensor(lf[0]), torch.tensor(lf[1]), lf[2])
+    cfg = tconfig.ScanConfig(**SC, exclude_unreliable=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         extract_features_from_grid(torch.tensor(grid), torch.tensor(gmask),
                                    torch.tensor(n_per_ring), cfg, lf_table=table)

@@ -135,7 +135,7 @@ def test_other_families_still_raise():
     _, tcfg = configs("orb")
     for kw in (dict(descriptor_type="brisk"), dict(matcher_type="flann")):
         cfg = tcfg.replace(visual=dataclasses.replace(tcfg.visual, **kw))
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="A5"):
             tvo.vo_step(tvo.init_vo_state(cfg, "cpu"), torch.zeros((376, 1248)), torch.eye(3), cfg,
                         pre_buckets=TBuckets(*(torch.zeros((2, 2)) for _ in range(4))))
 

@@ -1,8 +1,11 @@
 // Fused Gauss-Newton solve for the two lidar factor types: all inner
-// iterations of one solve in one launch of one thread-block cluster.
+// iterations of one solve in one launch of one thread-block cluster; a batch
+// of independent solves (loop closure's seeds) runs one cluster each along
+// gridDim.y, in the same launch.
 //
 // Replaces: vloam_tpu/ops/pallas_gn.py, _gn_kernel (:138-205), launched by
-// _gn_call (:348) for solve_pose_gn_lidar.
+// _gn_call (:348) for solve_pose_gn_lidar (and under jax.vmap for the seeds
+// of vloam_tpu/parallel/loop_closure.py's registration).
 //
 // Per iteration:
 //   * edge residual r = (lp - a) x c, with lp = R p + t and c = (a-b)/|a-b|
@@ -209,7 +212,27 @@ __device__ inline float cluster_sum(const float (*buf)[kLanes], int lane) {
   return s;
 }
 
-__global__ void __launch_bounds__(kThreads) gn_lidar_kernel(const LidarArgs g) {
+// The batch strides (elements) between one problem's array and the next.
+struct LidarBatch {
+  long long pose0, ep, ea, eb, ev, pp, pn, pd, pv, pose_out;
+};
+
+// Problem blockIdx.y of a batch: its own cluster (the grid's clusters run
+// along x), its arrays at blockIdx.y batch strides from the first problem's.
+__global__ void __launch_bounds__(kThreads)
+    gn_lidar_kernel(const LidarArgs g0, const LidarBatch b) {
+  const long long k = blockIdx.y;
+  LidarArgs g = g0;
+  g.pose0 += k * b.pose0;
+  g.ep += k * b.ep;
+  g.ea += k * b.ea;
+  g.eb += k * b.eb;
+  g.ev += k * b.ev;
+  g.pp += k * b.pp;
+  g.pn += k * b.pn;
+  g.pd += k * b.pd;
+  g.pv += k * b.pv;
+  g.pose_out += k * b.pose_out;
   extern __shared__ float stage[];  // [kEdgeFloats][stage_e] then [kPlaneFloats][stage_s]
   __shared__ float part[2][kWarps * kLanes];
   __shared__ float slots[2][kCluster][kLanes];  // [buffer][source rank][sum], pushed
@@ -369,18 +392,25 @@ extern "C" int vloam_gn_lidar_setup() {
       gn_lidar_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStageBytes));
 }
 
-// ep, ea, eb: (be, 3) float32 rows at the given row strides (elements), ev
-// (be,) bool; pp, pn: (bs, 3), pd (bs,) float32, pv (bs,) bool; pose0 and
-// pose_out (7,) [qx qy qz qw tx ty tz], pose0 at stride s_pose.  Returns the
-// launch's error code.
-extern "C" int vloam_gn_lidar(const float* pose0, long long s_pose, const float* ep,
-                              long long s_ep, const float* ea, long long s_ea, const float* eb,
-                              long long s_eb, const unsigned char* ev, long long s_ev, int be,
-                              const float* pp, long long s_pp, const float* pn, long long s_pn,
-                              const float* pd, long long s_pd, const unsigned char* pv,
-                              long long s_pv, int bs, int iters, float huber_delta,
-                              float lm_lambda, float* pose_out, void* stream) {
-  if (be < 0 || bs < 0 || iters < 0) return static_cast<int>(cudaErrorInvalidValue);
+// `batch` independent solves in one launch, one cluster of kCluster CTAs
+// each.  ep, ea, eb: (be, 3) float32 rows at the given row strides
+// (elements), ev (be,) bool; pp, pn: (bs, 3), pd (bs,) float32, pv (bs,)
+// bool; pose0 and pose_out (7,) [qx qy qz qw tx ty tz], pose0 at stride
+// s_pose.  Problem k's arrays start k batch strides (the b_* arguments,
+// elements; 0 shares one array among all problems) past the pointers given;
+// its pose goes to pose_out + k * b_out.  Returns the launch's error code.
+extern "C" int vloam_gn_lidar(
+    int batch, const float* pose0, long long s_pose, long long b_pose, const float* ep,
+    long long s_ep, long long b_ep, const float* ea, long long s_ea, long long b_ea,
+    const float* eb, long long s_eb, long long b_eb, const unsigned char* ev, long long s_ev,
+    long long b_ev, int be, const float* pp, long long s_pp, long long b_pp, const float* pn,
+    long long s_pn, long long b_pn, const float* pd, long long s_pd, long long b_pd,
+    const unsigned char* pv, long long s_pv, long long b_pv, int bs, int iters,
+    float huber_delta, float lm_lambda, float* pose_out, long long b_out, void* stream) {
+  if (batch < 0 || batch > 65535 || be < 0 || bs < 0 || iters < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch == 0) return 0;
   // stage every row of the largest share (CTA 0's) if it fits the budget,
   // else the same fraction of each type (the rest is read from global memory)
   const long long share_e = local_rows(be, 0);
@@ -394,9 +424,10 @@ extern "C" int vloam_gn_lidar(const float* pose0, long long s_pose, const float*
   const LidarArgs g{pose0, s_pose, ep, s_ep, ea, s_ea, eb, s_eb, ev, s_ev, be,
                     pp, s_pp, pn, s_pn, pd, s_pd, pv, s_pv, bs, iters, huber_delta,
                     lm_lambda, static_cast<int>(stage_e), static_cast<int>(stage_s), pose_out};
+  const LidarBatch b{b_pose, b_ep, b_ea, b_eb, b_ev, b_pp, b_pn, b_pd, b_pv, b_out};
 
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, 1, 1);
+  cfg.gridDim = dim3(kCluster, batch, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(4 * (kEdgeFloats * stage_e + kPlaneFloats * stage_s));
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -407,7 +438,7 @@ extern "C" int vloam_gn_lidar(const float* pose0, long long s_pose, const float*
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, gn_lidar_kernel, g);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gn_lidar_kernel, g, b);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,7 @@ dataset directly (no ROS):
 Also understands the KITTI *odometry* benchmark layout:
   <root>/sequences/<NN>/velodyne/NNNNNN.bin, image_0/NNNNNN.png, calib.txt
 
-Host-side NumPy; the native C++ prefetcher of the reference (not ported, ROADMAP A8) offers the
+Host-side NumPy; the native C++ prefetcher of the reference (not ported, ROADMAP A2) offers the
 same frames with async readahead.
 """
 

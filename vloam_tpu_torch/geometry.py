@@ -89,6 +89,19 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
     return quat_normalize(q)
 
 
+def quat_to_angle_axis(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> angle-axis vector, on the w >= 0 hemisphere.  Below
+    |xyz| = 1e-8 the scale is the limit 2 (the pose graph differentiates this
+    at residual ~0: the guarded division keeps the untaken branch finite)."""
+    q = torch.where(q[..., 3:4] < 0, -q, q)
+    xyz = q[..., :3]
+    w = torch.clamp(q[..., 3], -1.0, 1.0)
+    sin_half = torch.linalg.vector_norm(xyz, dim=-1)
+    angle = 2.0 * torch.atan2(sin_half, w)
+    scale = torch.where(sin_half < 1e-8, 2.0, angle / torch.clamp(sin_half, min=1e-12))
+    return xyz * scale[..., None]
+
+
 def angle_axis_to_quat(aa: torch.Tensor) -> torch.Tensor:
     theta = torch.linalg.vector_norm(aa, dim=-1, keepdim=True)
     half = 0.5 * theta

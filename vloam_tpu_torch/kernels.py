@@ -53,10 +53,11 @@ _SIGNATURES = {
     "vloam_knn": _KNN_PROBLEM + [_I, _I, _I, _P, _P, _P, _P],
     # (m, n, k, splits, pilot_step, pilot_splits) -> bytes, not an error code
     "vloam_knn_scratch_bytes": [_I, _I, _I, _I, _I, _I],
-    # (pose0, stride, then each of ep, ea, eb, ev: pointer and row stride, be; the
-    # same for pp, pn, pd, pv and bs; iters, huber_delta, lm_lambda, pose_out,
-    # stream)
-    "vloam_gn_lidar": [_P, _L] * 5 + [_I] + [_P, _L] * 4 + [_I, _I, _F, _F, _P, _P],
+    # (batch, then pose0 and each of ep, ea, eb, ev: pointer, row stride, batch
+    # stride; be; the same for pp, pn, pd, pv and bs; iters, huber_delta,
+    # lm_lambda, pose_out, its batch stride, stream)
+    "vloam_gn_lidar": ([_I] + [_P, _L, _L] * 5 + [_I] + [_P, _L, _L] * 4
+                       + [_I, _I, _F, _F, _P, _L, _P]),
     # (pose0, stride, then X0, xb0, xb1, has_depth, no_depth: pointer and row
     # stride; m, iters, huber_delta, lm_lambda, pose_out, stream)
     "vloam_gn_vo": [_P, _L] * 6 + [_I, _I, _F, _F, _P, _P],

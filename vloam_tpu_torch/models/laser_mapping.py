@@ -290,7 +290,7 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
     if not mc.insert_dedup:
         raise NotImplementedError(
             "MappingConfig.insert_dedup=False (window re-voxelisation) is not ported yet "
-            "(ROADMAP A9)")
+            "(ROADMAP A5)")
     dev = pose_wodom.device
 
     pose0 = geo.pose_compose(state.wmap_wodom, pose_wodom)

@@ -4,6 +4,8 @@
 Per frame: two outer iterations, each one fused k-NN launch for both
 association problems (sharp vs last less-sharp, flat vs last less-flat),
 the ring-constrained picks from the k-NN lists, and one fused GN launch.
+``solve_f2f_batched`` registers one scan from several seeds at once (loop
+closure): still one k-NN launch and one GN launch an outer iteration.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from vloam_tpu_torch import geometry as geo
 from vloam_tpu_torch.config import VloamConfig
 from vloam_tpu_torch.ops import lidar_factors
-from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_lidar
+from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_lidar, solve_pose_gn_lidar_batched
 from vloam_tpu_torch.ops.fused_knn import knn_pair
 from vloam_tpu_torch.ops.knn import masked_argmin
 from vloam_tpu_torch.ops.scan_registration import ScanFeatures
@@ -60,25 +62,25 @@ def lo_state_from_numpy(state, device) -> LoState:
 
 
 def _ring_picks(d2, idx, cand, cfg):
-    """From a k-NN list: the global nearest j, the nearest same-ring-as-j
-    candidate != j, and the nearest nearby-other-ring candidate.
+    """From a k-NN list (..., M, k): the global nearest j, the nearest
+    same-ring-as-j candidate != j, and the nearest nearby-other-ring candidate.
 
-    Returns (d2_1, j1, d2_same, j_same, d2_other, j_other)."""
+    Returns (d2_1, j1, d2_same, j_same, d2_other, j_other), each (..., M)."""
     oc = cfg.odom
     ring_c = torch.floor(cand[:, 3]).to(torch.int64)
-    ring_n = ring_c[idx]                                     # (M, k)
-    ring1 = ring_n[:, 0]
+    ring_n = ring_c[idx]                                     # (..., M, k)
+    ring1 = ring_n[..., :1]
 
-    d2_1, j1 = d2[:, 0], idx[:, 0]
-    same = ring_n == ring1[:, None]
-    same[:, 0] = False
-    dring = torch.abs(ring_n - ring1[:, None]).to(torch.float32)
-    other = (ring_n != ring1[:, None]) & (dring <= oc.nearby_scan)
+    d2_1, j1 = d2[..., 0], idx[..., 0]
+    same = ring_n == ring1
+    same[..., 0] = False
+    dring = torch.abs(ring_n - ring1).to(torch.float32)
+    other = (ring_n != ring1) & (dring <= oc.nearby_scan)
 
     d2_s, c_s = masked_argmin(d2, same)
     d2_o, c_o = masked_argmin(d2, other)
-    j_s = torch.gather(idx, 1, c_s[:, None])[:, 0]
-    j_o = torch.gather(idx, 1, c_o[:, None])[:, 0]
+    j_s = torch.gather(idx, -1, c_s[..., None])[..., 0]
+    j_o = torch.gather(idx, -1, c_o[..., None])[..., 0]
     return d2_1, j1, d2_s, j_s, d2_o, j_o
 
 
@@ -110,12 +112,8 @@ def solve_f2f(feats: ScanFeatures, cand_corner, cand_corner_mask, cand_surf,
     (pose cand_T_feats, counts (2,) edge/plane correspondences)."""
     oc = cfg.odom
     if oc.distortion:
-        raise NotImplementedError("OdometryConfig.distortion is not ported yet (ROADMAP A9)")
-    # valid-prefix length: the less-flat buffer may carry masked holes, so
-    # the kernel honours this count AND the mask
-    n_sc = cand_surf_mask.shape[0]
-    surf_n = torch.amax(torch.where(
-        cand_surf_mask, torch.arange(1, n_sc + 1, device=cand_surf_mask.device), 0))
+        raise NotImplementedError("OdometryConfig.distortion is not ported yet (ROADMAP A5)")
+    surf_n = _surf_count(cand_surf_mask)
 
     pose = pose0
     for _ in range(oc.outer_iters):
@@ -135,6 +133,51 @@ def solve_f2f(feats: ScanFeatures, cand_corner, cand_corner_mask, cand_surf,
             oc.inner_iters, oc.huber_delta, oc.lm_lambda,
         )
     counts = torch.stack([v_e.sum(), v_s.sum()]).to(torch.int32)
+    return pose, counts
+
+
+def _surf_count(cand_surf_mask):
+    """Valid-prefix length of the less-flat buffer: it may carry masked
+    holes, so the kernel honours this count AND the mask."""
+    n_sc = cand_surf_mask.shape[0]
+    return torch.amax(torch.where(
+        cand_surf_mask, torch.arange(1, n_sc + 1, device=cand_surf_mask.device), 0))
+
+
+def solve_f2f_batched(feats: ScanFeatures, cand_corner, cand_corner_mask, cand_surf,
+                      cand_surf_mask, poses0, cfg: VloamConfig):
+    """``solve_f2f`` from S seeds ``poses0`` (S, 7) at once (the reference's
+    ``jax.vmap(solve_f2f)`` over loop closure's seeds).  Per outer iteration
+    one ``knn_pair`` launch for all seeds, their transformed queries stacked
+    into (S * M, 3) against the one pair of candidate clouds (a query's row
+    is what an unbatched call gives it: the search rebases on the candidates
+    alone), and one batched GN launch.  Returns (poses (S, 7), counts (S, 2))."""
+    oc = cfg.odom
+    if oc.distortion:
+        raise NotImplementedError("OdometryConfig.distortion is not ported yet (ROADMAP A5)")
+    S, me, ms = poses0.shape[0], feats.sharp.shape[0], feats.flat.shape[0]
+    surf_n = _surf_count(cand_surf_mask)
+    pose = poses0
+    for _ in range(oc.outer_iters):
+        q_e = geo.pose_apply(pose[:, None, :], feats.sharp[None, :, :3])
+        q_s = geo.pose_apply(pose[:, None, :], feats.flat[None, :, :3])
+        (d2e, idxe), (d2s, idxs) = knn_pair(
+            q_e.reshape(S * me, 3), cand_corner[:, :3], cand_corner_mask, oc.assoc_k,
+            q_s.reshape(S * ms, 3), cand_surf[:, :3], cand_surf_mask, oc.assoc_k_surf,
+            b_counts=(None, surf_n),
+        )
+        p_e, a_e, b_e, v_e = _edge_correspondences(
+            d2e.view(S, me, -1), idxe.view(S, me, -1), feats.sharp, feats.sharp_mask,
+            cand_corner, cfg)
+        p_s, n_s, d_s, v_s = _plane_correspondences(
+            d2s.view(S, ms, -1), idxs.view(S, ms, -1), feats.flat, feats.flat_mask,
+            cand_surf, cfg)
+        # the feature points are the same for every seed: batch stride 0
+        pose = solve_pose_gn_lidar_batched(
+            pose, (p_e.expand(S, -1, -1), a_e, b_e, v_e), (p_s.expand(S, -1, -1), n_s, d_s, v_s),
+            oc.inner_iters, oc.huber_delta, oc.lm_lambda,
+        )
+    counts = torch.stack([v_e.sum(-1), v_s.sum(-1)], dim=-1).to(torch.int32)
     return pose, counts
 
 

@@ -18,7 +18,7 @@ select, so a VO frame reads nothing back from the device.
 Binary descriptors are int32 words holding the reference's uint32 bit
 patterns (see ``ops/orb``), in the state and in a checkpoint.
 
-Not ported (ROADMAP A9): CLAHE, the descriptor families other than ORB and
+Not ported (ROADMAP A5): CLAHE, the descriptor families other than ORB and
 BRIEF and the approximate (``flann``) matcher, which the reference reaches
 through its ``image_util`` facade, ``keypoint_nms``, detectors other than
 Shi-Tomasi, and the device-side depth-bucket build (``pre_buckets=None``).
@@ -129,21 +129,21 @@ def vo_step(state: VoState, img: torch.Tensor, K: torch.Tensor, cfg: VloamConfig
     ``pre_buckets`` is the depth-bucket grid of the CURRENT cloud, built by
     the host data layer.  The reference's ``cloud``, ``cloud_mask`` and
     ``proj`` arguments feed only the device-side bucket build, which is not
-    ported (ROADMAP A9), so they are not taken."""
+    ported (ROADMAP A5), so they are not taken."""
     vc = cfg.visual
     if vc.clahe:
-        raise NotImplementedError("VisualConfig.clahe is not ported yet (ROADMAP A9)")
+        raise NotImplementedError("VisualConfig.clahe is not ported yet (ROADMAP A5)")
     if not vc.optical_flow_match and not (vc.descriptor_type in ("orb", "brief")
                                           and vc.matcher_type == "bf"):
         raise NotImplementedError(
             f"descriptor_type={vc.descriptor_type!r} with matcher_type={vc.matcher_type!r} is "
-            "not ported yet (ROADMAP A9); descriptor mode runs ORB or BRIEF with the brute-force "
+            "not ported yet (ROADMAP A5); descriptor mode runs ORB or BRIEF with the brute-force "
             "matcher")
     if vc.keypoint_nms:
-        raise NotImplementedError("VisualConfig.keypoint_nms is not ported yet (ROADMAP A9)")
+        raise NotImplementedError("VisualConfig.keypoint_nms is not ported yet (ROADMAP A5)")
     if pre_buckets is None:
         raise NotImplementedError(
-            "the device-side depth-bucket build (pre_buckets=None) is not ported yet (ROADMAP A9)")
+            "the device-side depth-bucket build (pre_buckets=None) is not ported yet (ROADMAP A5)")
     dev = img.device
     count = state.count
 

@@ -15,7 +15,7 @@ mapping skip are Python branches, not device reads.  The host data layer
 builds the ring grid, the less-flat table and the depth buckets
 (``data/gridding``); ``frame_to_device`` moves them to the card.  The raw
 cloud path (``pre_gridded=False``) and the sharded mapping are not ported
-(ROADMAP A9, A10).
+(ROADMAP A5, A6b).
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ def vloam_step(state: VloamState, img, cloud, cloud_mask, ext: fg.Extrinsics, cf
     Returns (new_state, VloamOutputs)."""
     if not pre_gridded:
         raise NotImplementedError(
-            "vloam_step on a raw cloud (pre_gridded=False) is not ported yet (ROADMAP A9)")
+            "vloam_step on a raw cloud (pre_gridded=False) is not ported yet (ROADMAP A5)")
     grid, gmask = cloud, cloud_mask
     n_per_ring = gmask.sum(dim=1)
     count = state.count

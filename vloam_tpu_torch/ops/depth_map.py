@@ -8,7 +8,7 @@ per-keypoint depth queries with an inverse-distance-weighted 3-NN over the
 depth spread within ``depth_spread_gate`` (point_cloud_util.cpp:381-487).
 
 The device-side projection and bucket build (``project_cloud``,
-``build_buckets``, the raw-cloud path) are not ported (ROADMAP A9).
+``build_buckets``, the raw-cloud path) are not ported (ROADMAP A5).
 """
 
 from __future__ import annotations

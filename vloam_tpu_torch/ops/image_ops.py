@@ -18,7 +18,7 @@ All images are (H, W) float32 in [0, 255]; keypoints are (N, 2) float32
 ``lax.cond``/``lax.scan`` is a Python branch on a host value or a Python
 loop with an on-device freeze mask: nothing here reads the device.
 
-Not ported (ROADMAP A9): the FAST detector and ``bucket_nms``.
+Not ported (ROADMAP A5): the FAST detector and ``bucket_nms``.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def detect_corners(img: torch.Tensor, cfg: VisualConfig):
     """Shi-Tomasi corners -> (pts (max_corners, 2) xy, mask, response)."""
     if cfg.detector_type != "shitomasi":
         raise NotImplementedError(
-            f"detector_type={cfg.detector_type!r} is not ported yet (ROADMAP A9); "
+            f"detector_type={cfg.detector_type!r} is not ported yet (ROADMAP A5); "
             "the port detects Shi-Tomasi corners only")
     resp = shi_tomasi_response(img, cfg.block_size)
     H, W = resp.shape
@@ -101,7 +101,7 @@ def detect_corners(img: torch.Tensor, cfg: VisualConfig):
 
 
 def bucket_nms(pts, mask, resp, cfg: VisualConfig):
-    raise NotImplementedError("bucket_nms (VisualConfig.keypoint_nms) is not ported yet (ROADMAP A9)")
+    raise NotImplementedError("bucket_nms (VisualConfig.keypoint_nms) is not ported yet (ROADMAP A5)")
 
 
 def gaussian_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from vloam_tpu_torch.config import ScanConfig
+from vloam_tpu_torch.ops.voxel import voxel_downsample
 
 NCAND = 64   # per-sector candidate pre-reduction width
 _RB = 3      # bits per suppression reach packed into the score mantissa
@@ -111,19 +112,21 @@ def extract_features_from_grid(
     gmask: torch.Tensor,       # (R, C) bool
     n_per_ring: torch.Tensor,  # (R,) int
     cfg: ScanConfig,
-    lf_table=None,             # (slot_grid (R, C) int, base_sums (cap, 5) f32, n_runs)
+    lf_table=None,             # (slot_grid (R, C) int, base_sums (cap, 5) f32, n_runs) or None
 ) -> ScanFeatures:
-    """Scan registration from a pre-built ring grid and the host less-flat
-    voxel table (``data/gridding.less_flat_voxel_table``): the device only
-    subtracts the edge-labelled cells from their runs.  Output slots of runs
-    emptied by the subtraction stay masked holes."""
-    if lf_table is None:
-        raise NotImplementedError(
-            "extract_features_from_grid without a host lf_table (the on-device "
-            "less-flat voxel reduction) is not ported yet (ROADMAP A9)")
+    """Scan registration from a pre-built ring grid.
+
+    With the host less-flat voxel table (``data/gridding.less_flat_voxel_table``)
+    the device only subtracts the edge-labelled cells from their runs, and
+    output slots of runs emptied by the subtraction stay masked holes.
+    Without it (``lf_table=None``) the less-flat cloud is one run-merge over
+    all rings, keyed by ring id, of the valid cells that are not edges: the
+    reference's per-ring voxel filter, and what loop closure extracts its
+    keyframe features with.  The two give different rows wherever an edge
+    sits mid-run."""
     if cfg.exclude_unreliable:
         raise NotImplementedError(
-            "ScanConfig.exclude_unreliable is not ported yet (ROADMAP A9)")
+            "ScanConfig.exclude_unreliable is not ported yet (ROADMAP A5)")
     dev = grid.device
     curv, selectable = ring_curvature(grid, n_per_ring, cfg)
     fwd, bwd = _suppression_reach(grid, gmask, cfg)
@@ -188,6 +191,18 @@ def extract_features_from_grid(
     sharp, sharp_mask = gather_slots(edge_slots, edge_valid, cfg.max_sharp)
     less_sharp, less_sharp_mask = gather_slots(edge_slots, edge_valid, cfg.max_less_sharp)
     flat, flat_mask = gather_slots(flat_slots, flat_valid, cfg.max_flat)
+
+    if lf_table is None:
+        edge_lab = torch.zeros((R, C + 1), dtype=torch.bool, device=dev)
+        edge_lab[torch.arange(R, device=dev)[:, None],
+                 torch.where(edge_valid, edge_slots, C).reshape(R, -1)] = True
+        lf_mask = gmask & ~edge_lab[:, :C]
+        ring_id = torch.arange(R, device=dev)[:, None].expand(R, C)
+        less_flat, less_flat_mask = voxel_downsample(
+            grid.reshape(-1, 4), lf_mask.reshape(-1), cfg.less_flat_voxel, cfg.less_flat_cap,
+            group_key=ring_id.reshape(-1), max_grid=1024)
+        return ScanFeatures(sharp, sharp_mask, less_sharp, less_sharp_mask, flat, flat_mask,
+                            less_flat, less_flat_mask)
 
     # Less-flat: the host runs minus the edge-labelled cells.
     slot_grid, base_sums, n_runs = lf_table

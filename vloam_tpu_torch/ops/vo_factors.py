@@ -4,7 +4,7 @@ The two residuals the VO solve uses (visual_odometry.cpp:400-474): the 3D-2D
 reprojection for matches whose previous-frame pixel has lidar depth, and the
 2D-2D epipolar constraint otherwise.  The pose maps previous-camera
 coordinates into current-camera coordinates (cam0_curr_T_cam0_last).  The
-reference's unused 3D-3D and 2D-3D forms are not ported (ROADMAP A9).
+reference's unused 3D-3D and 2D-3D forms are not ported (ROADMAP A5).
 """
 
 from __future__ import annotations

@@ -2,12 +2,13 @@
 ``vloam_tpu/ops/voxel.voxel_downsample`` with ``presorted=True``).
 
 Points are quantised to integer voxel coordinates relative to the masked
-minimum and packed into one key; consecutive rows with the same key form
-one run and are replaced by their centroid (all channels
-averaged, PCL VoxelGrid semantics for scan-ordered clouds).  A voxel
-revisited later in the sweep keeps a second centroid, as in the reference.
-The reference's sorting path (``presorted=False``) and its group key are not
-ported: the lidar slice calls neither.
+minimum and packed into one key; consecutive rows with the same key (and the
+same group key) form one run and are replaced by their centroid (all
+channels averaged, PCL VoxelGrid semantics for scan-ordered clouds).  A
+voxel revisited later in the sweep keeps a second centroid, as in the
+reference.  The reference's sorting path (``presorted=False``) is not
+ported: its one caller there is the window re-voxelisation of
+``insert_dedup=False`` (ROADMAP A5), and it comes with that.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ def voxel_downsample(
     mask: torch.Tensor,       # (N,) bool
     leaf: float,
     cap: int,
+    group_key: torch.Tensor | None = None,  # (N,) int: points in different groups never merge
     max_grid: int = 1024,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (out_points (cap, D), out_mask (cap,)); the valid rows form a
@@ -44,6 +46,8 @@ def voxel_downsample(
 
     new_seg = torch.ones((n,), dtype=torch.bool, device=dev)
     new_seg[1:] = key[1:] != key[:-1]
+    if group_key is not None:
+        new_seg[1:] |= group_key[1:] != group_key[:-1]
     new_seg = new_seg & mask
     # Invalid rows keep the running segment id (their contribution is zeroed
     # below); a leading invalid prefix clamps to 0.

@@ -6,11 +6,13 @@ Replaces the reference's actionlib goal {date, seq, start_frame, end_frame}
 
 It runs on the GPU unless ``--device cpu`` is given; without a GPU the
 default raises.  ``--descriptor-match`` runs VO on ORB (or ``--descriptor
-brief``) descriptors with the brute-force matcher.  Flags of features that
-are not ported yet (``--refine``, ``--loop-closure``, ``--debug-dir``, the
-other descriptor families and detectors, ``--matcher flann``, ``--clahe``,
-``--distortion``, ``--exclude-unreliable``) are passed on and the module
-that would implement them raises ``NotImplementedError``.
+brief``) descriptors with the brute-force matcher.  ``--refine`` fuses the
+three chains in a pose graph when the run ends (``MO{d}_refined.txt``);
+``--loop-closure`` adds loop factors between revisited keyframes.  Flags of
+features that are not ported yet (``--debug-dir``, the other descriptor
+families and detectors, ``--matcher flann``, ``--clahe``, ``--distortion``,
+``--exclude-unreliable``) are passed on and the module that would implement
+them raises ``NotImplementedError``.
 
 Examples:
   # synthetic end-to-end smoke (no data needed)
@@ -18,6 +20,9 @@ Examples:
 
   # the same with VO matching ORB descriptors instead of tracking (KLT)
   python -m vloam_tpu_torch.runtime --dataset synthetic --frames 10 --descriptor-match
+
+  # pose-graph refinement with loop closure when the run ends
+  python -m vloam_tpu_torch.runtime --dataset synthetic --frames 30 --refine --loop-closure
 
   # KITTI raw drive, decoupled mode, trajectories into results/
   python -m vloam_tpu_torch.runtime --dataset raw --root /data/kitti \\
@@ -151,14 +156,20 @@ def main(argv=None) -> None:
 
     from vloam_tpu_torch.runtime.driver import run_kitti, run_synthetic
 
-    # --keyframe-every and the four --loop-* gates only tune loop closure, and
-    # --debug-every the debug dumps; VloamDriver refuses both features
-    # (ROADMAP A10, A9), so these are not passed on
+    # --debug-every only tunes the debug dumps, which VloamDriver refuses
+    # (ROADMAP A5), so it is not passed on
+    loop_kw = {
+        "loop_radius": args.loop_radius,
+        "loop_min_travel": args.loop_min_travel,
+        "loop_drift_rate": args.loop_drift_rate,
+        "loop_min_gap": args.loop_min_gap,
+    }
     if args.dataset == "synthetic":
         res = run_synthetic(
             cfg, n_frames=args.frames, speed=args.speed, out_dir=args.out,
             verbose=not args.json, lidar_only=args.lidar_only, refine=args.refine,
-            loop_closure=args.loop_closure, device=args.device,
+            loop_closure=args.loop_closure, keyframe_every=args.keyframe_every,
+            loop_kw=loop_kw, device=args.device,
         )
     else:
         from vloam_tpu_torch.data.kitti import OdometrySequence, RawSequence
@@ -172,6 +183,7 @@ def main(argv=None) -> None:
                         checkpoint_every=args.checkpoint_every, resume=args.resume,
                         debug_dir=args.debug_dir,
                         refine=args.refine, loop_closure=args.loop_closure,
+                        keyframe_every=args.keyframe_every, loop_kw=loop_kw,
                         device=args.device)
     if args.json:
         print(json.dumps(res))

@@ -9,8 +9,14 @@ evaluation tooling applies unchanged.
 World poses are accumulated twice: in f32 on the device (the coupling
 state) and in float64 on the host from the per-frame deltas in VloamOutputs
 (geometry_np; the reference leans on Ceres doubles,
-laser_odometry.cpp:524-525).  Trajectory export reads the f64 chains; the
-realised f32-vs-f64 divergence is tracked per chain (``f32_divergence_m``).
+laser_odometry.cpp:524-525).  Trajectory export, loop-closure gating and
+pose-graph refinement read the f64 chains; the realised f32-vs-f64
+divergence is tracked per chain (``f32_divergence_m``).
+
+``close()`` ends a run; with ``refine`` or ``loop_closure`` it first fuses
+the three chains in a pose graph (``refine_trajectory``), with loop factors
+registered between revisited keyframes when ``loop_closure`` is set, and
+writes ``MO{d}_refined.txt``.
 
 Per frame the host reads the device once: the three deltas, the three world
 poses and the LO correspondence counts come back as one stacked tensor, and
@@ -18,7 +24,7 @@ the host arrays go up through pinned memory without blocking.
 
 The device is ``"cuda"`` unless the caller passes another; a missing GPU
 raises.  Not ported: the native C++ host library and its prefetcher
-(ROADMAP A8), pose-graph refinement and loop closure (A10), debug PNGs (A9).
+(ROADMAP A2), debug PNGs (A5).
 """
 
 from __future__ import annotations
@@ -39,6 +45,11 @@ from vloam_tpu_torch.models import frame_graph as fg
 from vloam_tpu_torch.models.vloam import (VloamOutputs, host_to_device, init_vloam_state,
                                           vloam_step)
 from vloam_tpu_torch.ops.depth_map import DepthBuckets
+from vloam_tpu_torch.ops.scan_registration import extract_features_from_grid
+from vloam_tpu_torch.parallel.loop_closure import (detect_revisits, loop_factors,
+                                                   register_loop)
+from vloam_tpu_torch.parallel.pose_graph import (PoseGraphFactors, concat_factors,
+                                                 odometry_factors, optimize_pose_graph_banded)
 from vloam_tpu_torch.utils.profiling import StageTimer
 from vloam_tpu_torch.utils.trajectory import TrajectoryWriter
 
@@ -95,14 +106,15 @@ class VloamDriver:
         debug_dir: str | None = None,
         refine: bool = False,
         loop_closure: bool = False,
+        keyframe_every: int = 10,
+        loop_radius: float = 6.0,
+        loop_min_travel: float = 20.0,
+        loop_drift_rate: float = 0.05,
+        loop_min_gap: int = 3,
         device="cuda",
     ):
-        if refine or loop_closure:
-            raise NotImplementedError(
-                "pose-graph refinement and loop closure (refine=True, loop_closure=True) are "
-                "not ported yet (ROADMAP A10)")
         if debug_dir:
-            raise NotImplementedError("debug PNG dumps (debug_dir) are not ported yet (ROADMAP A9)")
+            raise NotImplementedError("debug PNG dumps (debug_dir) are not ported yet (ROADMAP A5)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ext = fg.Extrinsics(*(x.to(self.device) for x in ext))
@@ -111,6 +123,22 @@ class VloamDriver:
         self.count = 0
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
+        # Pose-graph back end: the per-frame f64 world poses of the three
+        # chains, fused after the sequence.
+        self.refine = refine or loop_closure
+        self._world_hist: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        self._refined: np.ndarray | None = None
+        self._refined_unguarded: np.ndarray | None = None
+        self.refine_report: dict = {}
+        # Loop closure: every keyframe_every-th frame's ring grid kept on the
+        # host, re-registered scan to scan at close() where the MO chain revisits.
+        self.loop_closure = loop_closure
+        self.keyframe_every = keyframe_every
+        self.loop_radius = loop_radius
+        self.loop_min_travel = loop_min_travel
+        self.loop_drift_rate = loop_drift_rate
+        self.loop_min_gap = loop_min_gap
+        self._keyframes: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         # f64 host world chains, rebased from per-frame f32 deltas (module
         # docstring; reference: Ceres doubles).  _anchor64 is the f64 twin
         # of cam0_init_T_cam0_start, captured at frame 0.
@@ -135,39 +163,44 @@ class VloamDriver:
 
     def save_checkpoint(self) -> None:
         """Snapshot the device state (``utils/checkpoint``) and the host
-        driver state (<path>_driver.npz: the f64 chains, under the
-        reference driver's keys) so a resumed run continues where an
-        uninterrupted one would be."""
+        driver state (<path>_driver.npz: the f64 chains, the refinement
+        history and the loop-closure keyframes, under the reference driver's
+        keys) so a resumed run continues where an uninterrupted one would
+        be, refinement and loop closure included."""
         from vloam_tpu_torch.utils.checkpoint import save_checkpoint
 
         path = os.path.join(self.checkpoint_dir, f"ckpt_{self.count:06d}")
         save_checkpoint(path, self.state, self.count)
         for w in self.writers.values():
             w.flush()
-        np.savez(
-            path + "_driver.npz",
-            w_vo64=self._w_vo64, w_lo64=self._w_lo64, w_mo64=self._w_mo64,
-            anchor64=(self._anchor64 if self._anchor64 is not None else np.zeros(0, np.float64)),
-            divergence=np.array([self.f32_divergence_m[k] for k in ("vo", "lo", "mo")],
-                                np.float64),
-            # refinement history and loop-closure keyframes: not ported, always empty
-            world_hist=np.zeros((0, 3, 7), np.float64),
-            kf_ids=np.zeros((0,), np.int64),
-        )
+        kf_ids = sorted(self._keyframes)
+        arrs = {
+            "w_vo64": self._w_vo64, "w_lo64": self._w_lo64, "w_mo64": self._w_mo64,
+            "anchor64": (self._anchor64 if self._anchor64 is not None
+                         else np.zeros(0, np.float64)),
+            "divergence": np.array([self.f32_divergence_m[k] for k in ("vo", "lo", "mo")],
+                                   np.float64),
+            "world_hist": (np.stack([np.stack(h) for h in self._world_hist])
+                           if self._world_hist else np.zeros((0, 3, 7), np.float64)),
+            "kf_ids": np.array(kf_ids, np.int64),
+        }
+        for fid in kf_ids:
+            arrs[f"kf_grid_{fid}"], arrs[f"kf_mask_{fid}"] = self._keyframes[fid]
+        np.savez(path + "_driver.npz", **arrs)
 
     def load_host_state(self, dpath: str) -> None:
-        """Restore the host chains from a ``_driver.npz`` (this driver's or
+        """Restore the host state from a ``_driver.npz`` (this driver's or
         the reference driver's: the keys are the same)."""
         z = np.load(dpath)
-        if len(z["world_hist"]) or len(z["kf_ids"]):
-            raise NotImplementedError(
-                f"{dpath} holds refinement history or loop-closure keyframes; pose-graph "
-                "refinement and loop closure are not ported yet (ROADMAP A10)")
         self._w_vo64 = z["w_vo64"]
         self._w_lo64 = z["w_lo64"]
         self._w_mo64 = z["w_mo64"]
         self._anchor64 = z["anchor64"] if z["anchor64"].size else None
         self.f32_divergence_m = dict(zip(("vo", "lo", "mo"), (float(v) for v in z["divergence"])))
+        wh = z["world_hist"]
+        self._world_hist = [(wh[i, 0], wh[i, 1], wh[i, 2]) for i in range(len(wh))]
+        self._keyframes = {int(fid): (z[f"kf_grid_{fid}"], z[f"kf_mask_{fid}"])
+                           for fid in z["kf_ids"]}
 
     def restore_checkpoint(self, path: str) -> int:
         """Restore device + driver state from a checkpoint; truncates the
@@ -198,6 +231,8 @@ class VloamDriver:
         else:
             img = pad_image(image, cfg)
         grid, gmask = np.asarray(grid), np.asarray(gmask)
+        if self.loop_closure and self.count % self.keyframe_every == 0:
+            self._keyframes[self.count] = (grid, gmask)
         with self.timer.stage("host_buckets"):
             # VO depth buckets built host-side, like the ring gridding
             bu, bv, bz, bc = depth_buckets(grid.reshape(-1, 4), gmask.reshape(-1), self._proj,
@@ -228,6 +263,9 @@ class VloamDriver:
             self.writers["vo"].append(self._export_row(self._w_vo64))
             self.writers["lo"].append(self._export_row(self._w_lo64))
             self.writers["mo"].append(self._export_row(self._w_mo64))
+        if self.refine:
+            self._world_hist.append(
+                (self._w_vo64.copy(), self._w_lo64.copy(), self._w_mo64.copy()))
         self.count += 1
         if self.checkpoint_dir and self.checkpoint_every and self.count % self.checkpoint_every == 0:
             self.save_checkpoint()
@@ -282,7 +320,165 @@ class VloamDriver:
         cam = gnp.pose_compose(gnp.pose_compose(gnp.pose_inverse(b), world64), b)
         return gnp.pose_compose(gnp.pose_inverse(self._anchor64), cam)
 
+    def _keyframe_features(self, fid: int):
+        """Scan features of keyframe ``fid`` from its stored ring grid, with
+        the device-side less-flat reduction (no host table), as the
+        reference extracts them."""
+        grid, gmask = self._keyframes[fid]
+        g = torch.as_tensor(grid, device=self.device)
+        m = torch.as_tensor(gmask, device=self.device)
+        return extract_features_from_grid(g, m, m.sum(dim=1).to(torch.int32), self.cfg.scan)
+
+    def _loop_factors(self, mo: np.ndarray):
+        """Detect and register loop closures over the stored keyframes.
+
+        Revisits are gated on the MO chain's keyframe positions (real
+        traveled path between them, a radius that widens with it); accepted
+        registrations (``parallel/loop_closure.register_loop``) become
+        relative-pose factors indexed into the full frame graph, weighted by
+        their evidence."""
+        kf_ids = [i for i in sorted(self._keyframes) if i < len(mo)]
+        if len(kf_ids) < 2:
+            return None
+        positions = np.stack([mo[i][4:] for i in kf_ids])
+        pairs_kf = detect_revisits(
+            positions, min_gap=self.loop_min_gap, radius=self.loop_radius,
+            min_spacing=2, min_travel=self.loop_min_travel,
+            drift_rate=self.loop_drift_rate,
+        )
+        if not pairs_kf:
+            return None
+
+        feat_cache: dict[int, object] = {}
+
+        def feats_of(fid):
+            if fid not in feat_cache:
+                feat_cache[fid] = self._keyframe_features(fid)
+            return feat_cache[fid]
+
+        accepted_pairs, zs, corrs = [], [], []
+        for jk, kk in pairs_kf:
+            fj, fk = kf_ids[jk], kf_ids[kk]
+            mo_j, mo_k = (torch.tensor(mo[f], dtype=torch.float32, device=self.device)
+                          for f in (fj, fk))
+            rel_init = geo.pose_compose(geo.pose_inverse(mo_j), mo_k)
+            z, n_tight, ok = register_loop(feats_of(fj), feats_of(fk), rel_init, self.cfg)
+            if self.cfg.verbose_level >= 1:
+                print(f"[loop] frames ({fj},{fk}): tight_inliers={n_tight} accepted={ok}")
+            if ok:
+                accepted_pairs.append((fj, fk))
+                zs.append(z)
+                corrs.append(n_tight)
+        if not accepted_pairs:
+            return None
+        # evidence weighting: information scales with the registration's
+        # tight-inlier count (residual weight enters JtJ squared, hence
+        # sqrt); normalised so a 600-inlier registration keeps weight 5.0
+        w = 5.0 * np.sqrt(np.asarray(corrs, np.float64) / 600.0)
+        return loop_factors(accepted_pairs, zs, weight=w, device=self.device)
+
+    @staticmethod
+    def _loop_resid_m(chain: np.ndarray, lf) -> float:
+        """Mean translation residual (m) of loop factors evaluated on a
+        chain: || (inv(chain[i]) o chain[j]).t - z.t || averaged."""
+        i, j, z = (np.asarray(x.cpu()) for x in (lf.i, lf.j, lf.z))
+        errs = [
+            np.linalg.norm(gnp.pose_compose(gnp.pose_inverse(gnp.as_pose64(chain[a])),
+                                            gnp.as_pose64(chain[b]))[4:] - z[k][4:])
+            for k, (a, b) in enumerate(zip(i, j))
+        ]
+        return float(np.mean(errs))
+
+    def refine_trajectory(
+        self, w_mo: float = 1.0, w_lo: float = 0.2, w_vo: float = 0.05, iters: int = 8
+    ) -> np.ndarray | None:
+        """Pose-graph fusion over the whole sequence: the VO / LO / MO
+        frame-to-frame motions carry partly independent noise, so a
+        relative-pose graph with the MO chain dominant smooths the
+        trajectory; loop factors (``loop_closure=True``) pull revisits
+        together.  Returns the refined (W, 7) world poses (float32) and
+        writes ``MO{d}_refined.txt`` when exporting.
+
+        Runs on the host-collected poses (``refine=True`` at construction),
+        on the driver's device.  The graph is a chain (up to 3 odometry
+        chains over the same poses) plus a few loop factors, so the solve is
+        the banded one (block-Thomas plus Woodbury, O(W) an iteration).
+        With two or more loop factors a held-out check guards the interior:
+        refine with each half of the factors, and if the held-out half's
+        residuals come out worse than on the raw chain, keep the raw chain
+        (``refine_report["fallback"]``)."""
+        if self._refined is not None:
+            return self._refined
+        if len(self._world_hist) < 3:
+            return None
+        dev = self.device
+        hist = np.stack([np.stack(h) for h in self._world_hist])   # (W, 3, 7) f64
+        vo, lo, mo = hist[:, 0], hist[:, 1], hist[:, 2]
+
+        def chain_deltas(p):
+            # deltas in f64 on the host (positions are km-scale; an f32
+            # inverse-compose there loses ~1e-4 m a link), then f32: the
+            # deltas themselves are frame-scale
+            d = [gnp.pose_compose(gnp.pose_inverse(p[i]), p[i + 1]) for i in range(len(p) - 1)]
+            return torch.tensor(np.stack(d), dtype=torch.float32, device=dev)
+
+        def chain_path(p):
+            return float(np.sum(np.linalg.norm(np.diff(p[:, 4:], axis=0), axis=1)))
+
+        # lidar-only runs leave the VO chain at identity; fusing a zero-motion
+        # chain would shrink every fused delta, so chains that did not run
+        # are left out
+        mo_path = chain_path(mo)
+        parts = [odometry_factors(chain_deltas(mo), weight=w_mo)]
+        if chain_path(lo) > 0.05 * mo_path:
+            parts.append(odometry_factors(chain_deltas(lo), weight=w_lo))
+        if chain_path(vo) > 0.05 * mo_path:
+            parts.append(odometry_factors(chain_deltas(vo), weight=w_vo))
+        chain = concat_factors(*parts)
+        lf = self._loop_factors(mo) if self._keyframes else None
+        mo32 = torch.tensor(mo, dtype=torch.float32, device=dev)
+
+        def solve(loop):
+            return optimize_pose_graph_banded(mo32, chain, loop, iters=iters).cpu().numpy()
+
+        refined = solve(lf)
+        self.refine_report = {"loop_factors": 0, "fallback": False}
+        if lf is not None:
+            L = int(lf.i.shape[0])
+            self.refine_report["loop_factors"] = L
+            self.refine_report["loop_resid_raw_m"] = self._loop_resid_m(mo, lf)
+            self.refine_report["loop_resid_refined_m"] = self._loop_resid_m(refined, lf)
+            if L >= 2:
+                def subset(parity):
+                    sel = torch.arange(L, device=dev) % 2 == parity
+                    return PoseGraphFactors(*[f[sel] for f in lf])
+
+                even, odd = subset(0), subset(1)
+                ref_e, ref_o = solve(even), solve(odd)
+                held_raw = 0.5 * (self._loop_resid_m(mo, odd) + self._loop_resid_m(mo, even))
+                held_ref = 0.5 * (self._loop_resid_m(ref_e, odd) + self._loop_resid_m(ref_o, even))
+                self.refine_report["heldout_raw_m"] = held_raw
+                self.refine_report["heldout_refined_m"] = held_ref
+                if held_ref > held_raw:
+                    self.refine_report["fallback"] = True
+                    if self.cfg.verbose_level >= 1:
+                        print(f"[loop] guard: held-out loop residual worsened "
+                              f"({held_raw:.2f} -> {held_ref:.2f} m); keeping the raw chain")
+                    self._refined_unguarded = refined   # kept for diagnostics
+                    refined = np.asarray(mo, np.float32).copy()
+
+        if self.out_dir is not None:
+            d = int(self.cfg.detach_vo_lo)
+            w = TrajectoryWriter(os.path.join(self.out_dir, f"MO{d}_refined.txt"))
+            for p in refined:
+                w.append(self._export_row(gnp.as_pose64(p)))
+            w.close()
+        self._refined = refined
+        return refined
+
     def close(self):
+        if self.refine:
+            self.refine_trajectory()
         for w in self.writers.values():
             w.close()
 
@@ -298,14 +494,18 @@ def run_synthetic(
     lidar_only: bool = False,
     refine: bool = False,
     loop_closure: bool = False,
+    keyframe_every: int = 10,
+    loop_kw: dict | None = None,
     device="cuda",
 ):
     """Full-pipeline run on the synthetic raycast world.  Returns a dict of
     drift metrics vs the exact trajectory (the replacement for the
-    reference's saved-rosbag smoke runs)."""
+    reference's saved-rosbag smoke runs); with ``refine`` also the refined
+    trajectory's final error (``final_err_refined_m``)."""
     dev = resolve_device(device)
     ext = fg.kitti_default_extrinsics(dev)
-    driver = VloamDriver(cfg, ext, out_dir, refine=refine, loop_closure=loop_closure, device=dev)
+    driver = VloamDriver(cfg, ext, out_dir, refine=refine, loop_closure=loop_closure,
+                         keyframe_every=keyframe_every, device=dev, **(loop_kw or {}))
     boxes = synthetic.default_scene()
     poses = synthetic.straight_trajectory(n_frames, speed=speed, yaw_rate=yaw_rate)
     K = camera_matrices(ext)[0]
@@ -351,6 +551,10 @@ def run_synthetic(
         "steady_ms_per_frame": float(np.median(t_per_frame[2:]) * 1e3) if n_frames > 2 else None,
         "fps": float(1.0 / np.median(t_per_frame[2:])) if n_frames > 2 else None,
     }
+    if refine and len(driver._world_hist) >= 3:
+        refined = driver.refine_trajectory()
+        if refined is not None:
+            res["final_err_refined_m"] = float(np.linalg.norm(refined[-1][4:] - gt_final))
     if verbose:
         print(driver.timer.summary())
         for k, v in res.items():
@@ -371,6 +575,8 @@ def run_kitti(
     debug_dir: str | None = None,
     refine: bool = False,
     loop_closure: bool = False,
+    keyframe_every: int = 10,
+    loop_kw: dict | None = None,
     device="cuda",
 ):
     """Run the pipeline over a real KITTI sequence (raw or odometry layout)
@@ -379,8 +585,8 @@ def run_kitti(
     ext = extrinsics_from_calib(sequence.calib, dev)
     driver = VloamDriver(cfg, ext, out_dir,
                          checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-                         debug_dir=debug_dir, refine=refine,
-                         loop_closure=loop_closure, device=dev)
+                         debug_dir=debug_dir, refine=refine, loop_closure=loop_closure,
+                         keyframe_every=keyframe_every, device=dev, **(loop_kw or {}))
     if resume:
         start = driver.restore_checkpoint(resume)
     end = len(sequence) if end is None else min(end, len(sequence))

@@ -36,11 +36,20 @@ prints instead how far apart the kernel, the plain version and the plain
 version in float64 land over N (default 20) perturbed copies of each solve
 (``spread``): what the tolerance below is set from.  ``--src`` builds the
 kernels from another copy of ``csrc/`` (a variant under trial).
+
+    python -m vloam_tpu_torch.tools.gn_check --against DIR
+
+prints instead, for the first LO and MO solve of frame N, whether one
+lidar solve through this tree's kernels and through the kernels built from
+DIR (another checkout's ``csrc/``, such as the parent commit's) give the same
+pose bit for bit, and the device ms a call of each in a replayed CUDA graph
+of 20, in turns (DIR's, this tree's, this tree's, DIR's): ``against``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -156,10 +165,9 @@ def launch_alone(kind: str, args, live: bool = True):
         if not live:
             ev, pv = torch.zeros_like(ev), torch.zeros_like(pv)
         arrays, strides, be, bs = fused_gn.lidar_layout(pose, (ep, ea, eb, ev), (pp, pn, pd, pv))
-        p = [v for a, s in zip(arrays, strides) for v in (a.data_ptr(), s)]
-        return lambda keep=arrays: kernels.check(lib.vloam_gn_lidar(
-            *p[:10], be, *p[10:], bs, iters, delta, lam, out.data_ptr(), kernels.stream_ptr(dev)),
-            "gn_lidar")
+        a = lidar_args(True, arrays, strides, be, bs, iters, delta, lam, out)
+        return lambda keep=arrays: kernels.check(
+            lib.vloam_gn_lidar(*a, kernels.stream_ptr(dev)), "gn_lidar")
     pose, X0, xb0, xb1, hd, nd, iters, delta, lam = args
     if not live:
         hd, nd = torch.zeros_like(hd), torch.zeros_like(nd)
@@ -259,6 +267,69 @@ def _perturbed(kind, args, gen, edges_only=False):
     return (pose, X0, xb0, xb1, hd & keep, nd & keep, *rest)
 
 
+# The entry's older form, with no batch: (pose0, stride, then each of ep, ea,
+# eb, ev: pointer and row stride, be; the same for pp, pn, pd, pv and bs;
+# iters, huber_delta, lm_lambda, pose_out, stream).
+_P, _L, _I, _F = kernels._P, kernels._L, kernels._I, kernels._F
+UNBATCHED_SIGNATURE = [_P, _L] * 5 + [_I] + [_P, _L] * 4 + [_I, _I, _F, _F, _P, _P]
+
+
+def lidar_args(batched: bool, arrays, strides, be, bs, iters, delta, lam, out) -> tuple:
+    """The arguments of one solve through ``vloam_gn_lidar`` but the last,
+    the stream (taken at the call, so a graph capture gets its own): the
+    batch of one (batch strides 0) of the batched entry, or the older
+    unbatched form."""
+    p = [v for a, s in zip(arrays, strides) for v in (a.data_ptr(), s)]
+    tail = (iters, delta, lam, out.data_ptr())
+    if not batched:
+        return (*p[:10], be, *p[10:], bs, *tail)
+    p = [v for a, s in zip(p[::2], p[1::2]) for v in (a, s, 0)]
+    return (1, *p[:15], be, *p[15:], bs, *tail, 7)
+
+
+def against(calls: dict, other: Path, card: str) -> None:
+    """One lidar solve through this tree's kernels and through those built
+    from ``other`` (either form of the entry, told apart by its source) on
+    the LO and MO solves of ``calls``: bit-equal poses, and the device ms a
+    call of each, in turns, printed."""
+    tree, libs = kernels.SRC_DIR, {}
+    for name, src in (("other", other), ("tree", tree)):
+        kernels.SRC_DIR = src
+        try:
+            lib = ctypes.CDLL(str(kernels.build()))
+        finally:
+            kernels.SRC_DIR = tree
+        lib.vloam_gn_lidar_setup.restype = ctypes.c_int
+        kernels.check(lib.vloam_gn_lidar_setup(), f"vloam_gn_lidar_setup ({name})")
+        batched = re.search(r'int vloam_gn_lidar\(\s*int batch',
+                            (Path(src) / "gn_lidar.cu").read_text()) is not None
+        fn = lib.vloam_gn_lidar
+        fn.argtypes = kernels._SIGNATURES["vloam_gn_lidar"] if batched else UNBATCHED_SIGNATURE
+        fn.restype = ctypes.c_int
+        libs[name] = (fn, batched)
+    for site in ("LO", "MO"):
+        pose, edge, plane, iters, delta, lam = calls[site]
+        arrays, strides, be, bs = fused_gn.lidar_layout(pose, edge, plane)
+        dev, poses, times = pose.device, {}, []
+        for name in ("other", "tree", "tree", "other"):
+            fn, batched = libs[name]
+            out = torch.empty(7, dtype=torch.float32, device=dev)
+            a = lidar_args(batched, arrays, strides, be, bs, iters, delta, lam, out)
+
+            def launch(fn=fn, a=a, name=name):
+                kernels.check(fn(*a, kernels.stream_ptr(dev)), f"gn_lidar ({name})")
+
+            launch()
+            torch.cuda.synchronize()
+            poses[name] = out.clone()
+            times.append(f"{name} {graph_ms(launch):.4f}")
+        same = torch.equal(poses["other"], poses["tree"])
+        print(f"gn_lidar {site} Be={be} Bs={bs}: {other} and this tree "
+              f"{'bit-equal' if same else 'DIFFER'}; device ms a call in a replayed CUDA graph "
+              f"of 20: {', '.join(times)} [{card}]")
+        assert same, (poses["other"], poses["tree"])
+
+
 def _float64(args):
     return tuple(_float64(a) if isinstance(a, tuple) else
                  a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args)
@@ -334,6 +405,10 @@ def main(argv=None) -> int:
         kernels.SRC_DIR = Path(argv[argv.index("--src") + 1]).resolve()
     card = card_line()
     calls = frame_calls(torch.device("cuda", 0), frame)
+    if "--against" in argv:
+        against(calls, Path(argv[argv.index("--against") + 1]).resolve(), card)
+        print(card)
+        return 0
     if "--spread" in argv:
         at = argv.index("--spread") + 1
         n = int(argv[at]) if at < len(argv) and argv[at].isdigit() else 20
