@@ -51,10 +51,20 @@ Phases, each printed on its own lines:
    x = 25 m cube boundary near frame 32), checked against ground truth, the
    kernels' launch counts and the slice's count of synchronising calls;
 6. the coupled (C) mode, 12 frames of the same course;
-7. the runtime entry point: ``runtime.driver.run_synthetic`` over 40 full
-   frames (raw clouds and images in, three KITTI trajectory files out),
-   checked against ground truth, phase 5's launch counts, and the count of
-   synchronising calls of a steady frame; VloamDriver's stage times;
+7. the runtime entry point: first the native host library
+   (``runtime/native``, ``native/vloam_host.cpp`` built by g++: its path
+   and seconds, or why this machine cannot build it; a failed build where
+   g++ and libpng are present fails the run), its depth buckets and
+   less-flat table against the NumPy ones on phase 2's 40 grids (equal
+   within tests/test_native.py's tolerances, host ms a call each way);
+   then ``runtime.driver.run_synthetic`` over 40 full frames (raw clouds
+   and images in, three KITTI trajectory files out, the host stages in the
+   library), checked against ground truth, phase 5's launch counts, and
+   the count of synchronising calls of a steady frame; VloamDriver's stage
+   times; (7b) ``run_kitti`` on phase 2's first 12 frames written as a
+   KITTI raw drive (.bin files, zlib-written PNGs, calibration files),
+   through the native prefetcher and through the NumPy loaders, the
+   exported rows within 5e-3 of each other;
 8. checkpoint and resume (12 frames, a checkpoint at 6, a fresh driver
    resumed from it) and the CLI in a subprocess, in KLT mode and with
    ``--descriptor-match``;
@@ -70,7 +80,18 @@ Phases, each printed on its own lines:
    stage per loop pair behind a device sync, the launches per pair, the
    arbiter's single-problem k-NN (every seed's sample stacked as its
    queries) bit-equal to its plain version on the inputs it was given, and
-   the raw and refined trajectories against ground truth.
+   the raw and refined trajectories against ground truth;
+11. the full step on the raw padded clouds of phase 2's first 12 frames
+   (``pre_gridded=False``, ``pre_buckets=None``: ring gridding, depth
+   buckets and the less-flat reduction on the device) against the
+   pre-gridded step given the host-built grid and buckets of the same
+   clouds: the same launches a frame as phase 5, no more synchronising
+   calls, final LO/MO/VO positions within 5 mm, ms/frame of both;
+12. the validation drive (``tools.validate_drive.drive``): 60 snake frames
+   at full width made once, in (D) without and with
+   ``exclude_unreliable``, MO final error within 3 % of the path in both,
+   ATE, the KITTI segment error where the drive has segments, steady
+   ms/frame.
 
 Phase 3 also holds the batched B3 (``solve_pose_gn_lidar_batched``, seven
 seeds of frame 15's LO solve) to its plain version, its batch of one to the
@@ -95,11 +116,13 @@ import json
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+import zlib
 from unittest import mock
 
 import numpy as np
@@ -143,6 +166,7 @@ GN_VO_OPS = 150        # per live match and iteration (csrc/gn_vo.cu)
 
 MIN_ORB_MATCHES = 100  # valid matches a frame in descriptor mode (tests/test_orb.py:56)
 N_SEEDS = 7            # loop closure's seeds: the chain estimate and 6 coarse peaks
+VALIDATION_FRAMES = 60  # the validation drive of phase 12 (tools/validate_drive runs 300)
 # the ring course of tests/test_driver_loop_closure.py (phase 10)
 RING_FRAMES, RING_SPEED = 56, 1.1
 RING_KW = dict(keyframe_every=5, loop_radius=6.0, loop_min_travel=25.0, loop_drift_rate=0.02,
@@ -298,7 +322,10 @@ def main() -> int:
     cfg = kitti_hdl64()
     ext = fg.kitti_default_extrinsics(dev)
     t0 = time.perf_counter()
-    frames, poses = stream.gen_frames(cfg, ext, N_FRAMES, speed=SPEED, yaw_rate=YAW_RATE)
+    raw, poses = stream.gen_raw(cfg, ext, N_FRAMES, speed=SPEED, yaw_rate=YAW_RATE)
+    proj = stream.camera_matrices(ext)[1]
+    frames = [stream.host_frame(cfg, proj, img, cloud) for img, cloud in raw]   # = gen_frames'
+    raw = raw[:N_SHORT]        # the raw clouds of the prefetcher phase and phase 11
     n_pts = [int(f[2].sum()) for f in frames]
     print(f"host data: {N_FRAMES} frames, {int(np.mean(n_pts))} gridded points/scan on average, "
           f"376x1248 images, {time.perf_counter() - t0:.1f} s (not timed below)")
@@ -317,7 +344,8 @@ def main() -> int:
     launches.update(step_launches)
     check_coupled(cfg, ext, dframes[:N_SHORT], poses, card)
     del dframes
-    check_driver(cfg, card, per_frame, step_syncs)
+    host_lib = check_driver(cfg, frames, card, per_frame, step_syncs)
+    check_prefetcher(cfg, ext, raw, host_lib, card)
     check_resume(cfg, ext, frames[:N_RESUME], card)
     check_cli(card)
     check_cli(card, "--descriptor-match")
@@ -326,6 +354,9 @@ def main() -> int:
                                                               step_syncs)
     del dframes
     launches["gn_lidar_batched"] = check_close(cfg, card)
+    check_raw_input(cfg, ext, raw, poses, card, per_frame, step_syncs)
+    del frames, raw
+    check_validation_drive(cfg, ext, card)
     count_gn_kernels(gn_sites, card)
     count_gather_kernels(card)
 
@@ -1371,8 +1402,9 @@ def gt_rows(poses):
     return np.stack(rows)
 
 
-def check_driver(cfg, card, step_per_frame, step_syncs):
-    """Phase 7: the runtime entry point on the card."""
+def check_driver(cfg, frames, card, step_per_frame, step_syncs):
+    """Phase 7: the runtime entry point on the card, with the native host
+    library (``check_host_library``).  Returns whether the library is in use."""
     from vloam_tpu_torch.data import synthetic
     from vloam_tpu_torch.ops import fused_gn, fused_knn, patch_gather
     from vloam_tpu_torch.runtime import driver as drv
@@ -1380,6 +1412,7 @@ def check_driver(cfg, card, step_per_frame, step_syncs):
 
     print(f"== phase 7: runtime.driver.run_synthetic, kitti_hdl64, {N_FRAMES} frames, "
           f"n_azimuth=1800 [{card}]")
+    host_lib = check_host_library(cfg, frames, card)
     fresh_device(torch.device("cuda", 0))
     counters = launch_counters()
     per_frame = {name: [] for name in counters}
@@ -1444,8 +1477,9 @@ def check_driver(cfg, card, step_per_frame, step_syncs):
         print(f"    {line}")
     print(f"  steady_ms_per_frame {res['steady_ms_per_frame']:.3f} (median of process(), frames "
           f"2..{N_FRAMES - 1}), fps {res['fps']:.2f}; whole run {wall:.1f} s with the host's "
-          f"scan and image synthesis [{card}]")
+          f"scan and image synthesis; host stages {'in the native library' if host_lib else 'in NumPy'} [{card}]")
     del driver, seen
+    return host_lib
 
 
 def check_resume(cfg, ext, frames, card):
@@ -1601,6 +1635,345 @@ def check_descriptor_mode(cfg, ext, dframes, poses, card, step_syncs):
           + (f"; other warnings: {syncs.other}" if syncs.other else ""))
     del state, vo_states
     return launches
+
+
+
+def check_host_library(cfg, frames, card):
+    """Phase 7a: build the native host library (g++), or say why this
+    machine cannot; a build that fails where it can is a failure.  Then,
+    on phase 2's ring grids, the NumPy host stages against the library's
+    twins by direct calls: equal within tests/test_native.py's tolerances
+    except where a value sits within float32 rounding of a bucket or voxel
+    edge (``compare_buckets``, ``compare_lf_tables``), and host ms a call
+    each way (median over the grids).  Returns whether the library is in
+    use."""
+    from vloam_tpu_torch.data import gridding
+    from vloam_tpu_torch.data.stream import camera_matrices
+    from vloam_tpu_torch.models.frame_graph import kitti_default_extrinsics
+    from vloam_tpu_torch.runtime import native
+
+    missing = native.toolchain_missing()
+    if missing:
+        print(f"  native host library: cannot be built on this machine ({missing}); the "
+              f"driver runs the NumPy host path, and the library's comparisons are not run")
+        return False
+    t0 = time.perf_counter()
+    so = native.build()          # raises with the compiler's output
+    build_s = time.perf_counter() - t0
+    assert native.available(), f"{so} built but does not load"
+    print(f"  native host library: {so.relative_to(os.path.dirname(os.path.abspath(__file__)))} "
+          f"in {build_s:.2f} s; libpng: {native.png_route()[1]}")
+    proj = camera_matrices(kitti_default_extrinsics("cpu"))[1]
+    ms = collections.defaultdict(list)
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        ms[name].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    edge_buckets, edge_cells, moved, run_gap, gap = 0, 0, 0, 0, 0.0
+    for _, grid, gmask, _, _ in frames:
+        flat, fmask = grid.reshape(-1, 4), gmask.reshape(-1)
+        pb = timed("depth_buckets (NumPy)", gridding.depth_buckets, flat, fmask, proj, cfg.visual)
+        nb = timed("depth_buckets_native", native.depth_buckets_native, flat, fmask, proj,
+                   cfg.visual)
+        pt = timed("less_flat_voxel_table (NumPy)", gridding.less_flat_voxel_table, grid, gmask,
+                   cfg.scan)
+        nt = timed("lf_voxel_table_native", native.lf_voxel_table_native, grid, gmask, cfg.scan)
+        n_b, g_b = compare_buckets(flat, fmask, proj, cfg.visual, pb, nb)
+        n_c, n_m, n_r = compare_lf_tables(grid, gmask, cfg.scan.less_flat_voxel, pt, nt)
+        edge_buckets, edge_cells, moved, run_gap = (edge_buckets + n_b, edge_cells + n_c,
+                                                    moved + n_m, run_gap + n_r)
+        gap = max(gap, g_b)
+    print(f"  host stages by direct calls on phase 2's {len(frames)} grids (host ms a call, "
+          f"median / min / max) [{card}]:")
+    for name, v in ms.items():
+        print(f"    {name:<32} {statistics.median(v):8.3f} {min(v):8.3f} {max(v):8.3f}")
+    print(f"  native vs NumPy over the {len(frames)} grids: depth buckets: counts equal but in "
+          f"{edge_buckets} bucket(s) that a point within float32 rounding of a bucket edge may "
+          f"fall in; the other buckets' means within {gap:.2e} (bound 2e-3); less-flat table: "
+          f"{moved} run start(s) moved, each at or just after one of the {edge_cells} cells "
+          f"within float32 rounding of a voxel edge (the library quantizes by a reciprocal "
+          f"multiply, NumPy divides), "
+          f"{run_gap} run(s) more or fewer in all; every other run's sums within rtol 1e-5 / "
+          f"atol 1e-4")
+    return True
+
+
+EPS32 = 2.0 ** -24    # float32 unit roundoff
+
+
+def compare_buckets(flat, fmask, proj, vc, pb, nb):
+    """The library's depth buckets (u, v, z, count) against NumPy's: both
+    project in float32 with their sums in another order, so a point within
+    float32 rounding of a bucket edge may land on either side.  Counts are
+    equal outside the buckets such points may fall in, means there within
+    2e-3.  Returns (buckets whose counts differ, largest gap of the other means)."""
+    pts = flat[:, :3].astype(np.float64)
+    P = proj.astype(np.float64)
+    uvz = pts @ P[:, :3].T + P[:, 3]
+    zs = np.maximum(uvz[:, 2], 1e-6)
+    ok = fmask & (uvz[:, 2] > vc.min_projection_depth)
+    g = vc.downsample_grid
+    bw, bh = pb[3].shape
+    pos = uvz[:, :2] / zs[:, None] / g                  # (u, v) in bucket units
+    cell = np.floor(pos).astype(np.int64)
+    allowed = np.zeros((bw, bh), bool)
+    for axis in (0, 1):
+        # float32 rounding of the dot product, of the division by depth and by g
+        tol = (8 * EPS32 * (np.abs(pts) @ np.abs(P[axis, :3]) + abs(P[axis, 3])) / zs / g
+               + 8 * EPS32 * np.abs(pos[:, axis]) + 1e-6)
+        near = ok & (np.abs(pos[:, axis] - np.round(pos[:, axis])) <= tol)
+        for side in (-1, 0):                            # the buckets either side of the edge
+            c = cell[near].copy()
+            c[:, axis] = np.round(pos[near, axis]).astype(np.int64) + side
+            inb = (c[:, 0] >= 0) & (c[:, 0] < bw) & (c[:, 1] >= 0) & (c[:, 1] < bh)
+            allowed[c[inb, 0], c[inb, 1]] = True
+    differ = pb[3] != nb[3]
+    assert not (differ & ~allowed).any(), \
+        f"depth buckets: counts differ away from bucket edges at {np.argwhere(differ & ~allowed)[:5]}"
+    gap = max(float(np.abs(a[~allowed] - b[~allowed]).max()) for a, b in zip(pb[:3], nb[:3]))
+    assert gap <= 2e-3, f"depth buckets: means differ by {gap}"
+    return int(differ.sum()), gap
+
+
+def compare_lf_tables(grid, gmask, leaf, pt, nt):
+    """The library's less-flat table against NumPy's.  The library
+    quantizes by a reciprocal multiply (``floor((x - p_min) * (1 / leaf))``),
+    NumPy and the device by a division, so a cell within float32 rounding of
+    a voxel edge may fall in the neighbouring voxel: only there (at such a
+    cell or the one after it) may a run start, and with it the run count and
+    every later slot number, differ; every run that holds no such cell has
+    equal sums within rtol 1e-5 / atol 1e-4.  Returns (cells within rounding
+    of an edge, run starts moved, runs more or fewer)."""
+    (ps, pbase, pn), (ns, nbase, nn) = pt, nt
+    valid = gmask.reshape(-1)
+    xyz = grid.reshape(-1, 4)[:, :3].astype(np.float64)
+    p_min = xyz[valid].min(axis=0)
+    q = (xyz - p_min) / np.float64(np.float32(leaf))   # position in voxel units
+    tol = 8 * EPS32 * (np.abs(xyz) + np.abs(p_min)) / leaf + 8 * EPS32 * np.abs(q) + 1e-6
+    near = valid & np.any(np.abs(q - np.round(q)) <= tol, axis=1)
+    affected = near | np.concatenate([[False], near[:-1]])
+    sp, sn = ps.reshape(-1), ns.reshape(-1)
+
+    def starts(s):
+        return (s >= 0) & (s != np.concatenate([[-1], s[:-1]]))
+
+    moved = starts(sp) != starts(sn)
+    assert not (moved & ~affected).any(), \
+        f"less-flat table: run starts differ away from voxel edges at {np.flatnonzero(moved & ~affected)[:5]}"
+    assert abs(nn - pn) <= int(moved.sum()), f"less-flat table: {nn} runs vs {pn}"
+    touched = np.isin(sp, sp[affected & (sp >= 0)]) | np.isin(sn, sn[affected & (sn >= 0)])
+    clean = valid & (sp >= 0) & (sn >= 0) & ~touched
+    np.testing.assert_allclose(nbase[sn[clean]], pbase[sp[clean]], rtol=1e-5, atol=1e-4)
+    return int(near.sum()), int(moved.sum()), abs(nn - pn)
+
+
+def png_gray(img: np.ndarray) -> bytes:
+    """An 8-bit grayscale PNG of ``img`` (values clipped to 0..255), written
+    with zlib alone."""
+    a = np.clip(img, 0, 255).astype(np.uint8)
+    h, w = a.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), a], axis=1).tobytes()   # filter 0 a row
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows, 6)) + chunk(b"IEND", b""))
+
+
+def write_kitti_drive(root, ext, raw, date="2026_03_15", seq="0001"):
+    """The frames as a KITTI raw drive under ``root``: the calibration files
+    of ``ext`` (calib_velo_to_cam R:/T:, calib_cam_to_cam R_rect_00:/P_rect_00:),
+    velodyne .bin files (x y z reflectance float32) and 8-bit PNG images."""
+    fmt = lambda a: " ".join(f"{v:.12e}" for v in np.asarray(a, np.float64).ravel())  # noqa: E731
+    date_dir = os.path.join(root, date)
+    cam_T_velo = ext.cam_T_velo.cpu().numpy()
+    drive_dir = os.path.join(date_dir, f"{date}_drive_{seq}_sync")
+    velo = os.path.join(drive_dir, "velodyne_points", "data")
+    imgs = os.path.join(drive_dir, "image_00", "data")
+    os.makedirs(velo)
+    os.makedirs(imgs)
+    with open(os.path.join(date_dir, "calib_velo_to_cam.txt"), "w") as f:
+        f.write(f"R: {fmt(cam_T_velo[:3, :3])}\nT: {fmt(cam_T_velo[:3, 3])}\n")
+    with open(os.path.join(date_dir, "calib_cam_to_cam.txt"), "w") as f:
+        f.write(f"R_rect_00: {fmt(ext.R_rect0.cpu().numpy()[:3, :3])}\n"
+                f"P_rect_00: {fmt(ext.P_rect0.cpu().numpy())}\n")
+    for i, (img, cloud) in enumerate(raw):
+        xyzr = np.concatenate([cloud, np.zeros((len(cloud), 1), np.float32)], axis=1)
+        xyzr.astype(np.float32).tofile(os.path.join(velo, f"{i:010d}.bin"))
+        with open(os.path.join(imgs, f"{i:010d}.png"), "wb") as f:
+            f.write(png_gray(img))
+    return date, seq
+
+
+def check_prefetcher(cfg, ext, raw, host_lib, card):
+    """Phase 7b: ``run_kitti`` on a KITTI raw drive written from phase 2's
+    first frames, through the native prefetcher (its threads read, decode
+    and grid the frames) and through the NumPy loader loop; the exported
+    rows agree within 5e-3 (native and NumPy depth buckets differ by up to
+    2e-3 px, and float atomics move a few map inserts run to run)."""
+    from vloam_tpu_torch.data.kitti import RawSequence
+    from vloam_tpu_torch.ops import fused_gn, fused_knn, patch_gather
+    from vloam_tpu_torch.runtime import driver as drv
+    from vloam_tpu_torch.runtime import native
+    from vloam_tpu_torch.utils.trajectory import load_kitti_trajectory
+
+    print(f"== phase 7b: runtime.driver.run_kitti on a {len(raw)}-frame KITTI raw drive written "
+          f"from phase 2's course, native prefetcher vs NumPy loaders [{card}]")
+    if not host_lib:
+        print("  not run: the native host library cannot be built on this machine (phase 7)")
+        return
+    counters = launch_counters()
+    opened = []
+    prefetcher = native.NativePrefetcher
+
+    def tracked(*a, **kw):
+        opened.append(prefetcher(*a, **kw))
+        return opened[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        date, seq = write_kitti_drive(os.path.join(tmp, "kitti"), ext, raw)
+        write_s = time.perf_counter() - t0
+        runs = {}
+        dev = ext.P_rect0.device
+        for name in ("prefetcher", "NumPy"):
+            fresh_device(dev)
+            fused_knn.LAUNCHES = fused_gn.LAUNCHES = fused_gn.LAUNCHES_VO = 0
+            patch_gather.LAUNCHES = 0
+            out = os.path.join(tmp, name)
+            with mock.patch.object(native, "NativePrefetcher", tracked), \
+                    mock.patch.object(native, "available",
+                                      (lambda: False) if name == "NumPy" else native.available):
+                res = drv.run_kitti(cfg, RawSequence(os.path.join(tmp, "kitti"), date, seq),
+                                    out_dir=out, verbose=False, device=dev)
+            got = {k: get() for k, get in counters.items()}
+            assert all(got.values()), f"run_kitti ({name}): a kernel was not launched: {got}"
+            runs[name] = (res, {k: load_kitti_trajectory(os.path.join(out, f"{k}1.txt"))
+                                for k in ("VO", "LO", "MO")}, got)
+            if name == "prefetcher":
+                assert len(opened) == 1 and opened[0]._h is None, \
+                    "run_kitti did not read through one prefetcher, closed at the end"
+        assert len(opened) == 1, "the NumPy run opened a prefetcher"
+    (res_n, rows_n, got_n), (res_p, rows_p, got_p) = runs["prefetcher"], runs["NumPy"]
+    assert got_n == got_p, f"launches differ: {got_n} vs {got_p}"
+    worst = {}
+    for k in rows_n:
+        assert rows_n[k].shape == (len(raw), 3, 4) and np.isfinite(rows_n[k]).all(), k
+        worst[k] = float(np.abs(rows_n[k] - rows_p[k]).max())
+        assert worst[k] <= RESUME_TOL, f"{k}1.txt: prefetcher vs NumPy rows differ by {worst[k]}"
+    print(f"  drive written in {write_s:.1f} s; exported rows, prefetcher vs NumPy loaders: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (bound {RESUME_TOL}); "
+          f"launches of each run {got_n}")
+    print(f"  steady_ms_per_frame (median of process_grid, frames 2..{len(raw) - 1}): prefetcher "
+          f"{res_n['steady_ms_per_frame']:.3f}, NumPy {res_p['steady_ms_per_frame']:.3f} [{card}]")
+
+
+def check_raw_input(cfg, ext, raw, poses, card, step_per_frame, step_syncs):
+    """Phase 11: the step on raw padded clouds (``pre_gridded=False``,
+    ``pre_buckets=None``: ring gridding, depth buckets and the less-flat
+    reduction on the device) against the pre-gridded step on the same
+    frames with its inputs built by the host from the same clouds (the
+    ring grid by ``grid_cloud``, the buckets by ``depth_buckets`` over the
+    whole cloud, no less-flat table: the raw path reduces on the device).
+    Neither makes more synchronising calls than phase 5's step."""
+    from vloam_tpu_torch.data import gridding, stream, synthetic
+    from vloam_tpu_torch.models.vloam import host_to_device, init_vloam_state, vloam_step
+    from vloam_tpu_torch.ops import fused_gn, fused_knn, patch_gather
+    from vloam_tpu_torch.ops.depth_map import DepthBuckets
+
+    print(f"== phase 11: full step vloam_step (D) on raw padded clouds (pre_gridded=False, "
+          f"pre_buckets=None), kitti_hdl64, {len(raw)} frames, against the pre-gridded step "
+          f"[{card}]")
+    dev = ext.P_rect0.device
+    proj = stream.camera_matrices(ext)[1]
+    raw_in, grid_in = [], []
+    for img, cloud in raw:
+        p, m = synthetic.pad_cloud(cloud, cfg.scan.max_points)
+        grid, gmask, _ = gridding.grid_cloud(cloud, cfg.scan)
+        bk = gridding.depth_buckets(p, m, proj, cfg.visual)
+        t = lambda x: host_to_device(x, dev)  # noqa: E731
+        raw_in.append((t(img), t(p), t(m), None))
+        grid_in.append((t(img), t(grid), t(gmask), DepthBuckets(*(t(b) for b in bk))))
+    results = {}
+    for name, inputs, pre_gridded in (("raw", raw_in, False), ("pre-gridded", grid_in, True)):
+        fresh_device(dev)
+        counters = launch_counters()
+        fused_knn.LAUNCHES = fused_gn.LAUNCHES = fused_gn.LAUNCHES_VO = patch_gather.LAUNCHES = 0
+
+        def step(s, f, pre_gridded=pre_gridded):
+            img, c, m, bk = f
+            return vloam_step(s, img, c, m, ext, cfg, pre_gridded=pre_gridded, pre_buckets=bk)
+
+        _, outs, frame_ms, per_frame, syncs = drive(step, init_vloam_state(cfg, dev), inputs,
+                                                    counters)
+        results[name] = (outs, frame_ms, per_frame, syncs)
+    outs, frame_ms, per_frame, syncs = results["raw"]
+    g_outs, g_ms, g_per_frame, g_syncs = results["pre-gridded"]
+    want = {k: v[:len(raw)] for k, v in step_per_frame.items()}
+    assert per_frame == want and g_per_frame == want, \
+        f"launches per frame {per_frame} / {g_per_frame}, phase 5's {want}"
+    for i, out in enumerate(outs):
+        for name, v in out._asdict().items():
+            assert bool(torch.isfinite(v.to(torch.float32)).all()), f"raw frame {i}: non-finite {name}"
+    check_lidar(outs, poses, "raw step")
+    diff = {k: float((getattr(outs[-1], k)[4:] - getattr(g_outs[-1], k)[4:]).abs().max())
+            for k in ("world_lo", "world_mo", "world_vo")}
+    assert all(d <= RESUME_TOL for d in diff.values()), \
+        f"raw vs pre-gridded final positions differ: {diff} (bound {RESUME_TOL} m)"
+    assert syncs.count <= g_syncs.count <= step_syncs.count, \
+        (f"frame {SYNC_FRAME}: synchronising calls: raw step {syncs.count}, pre-gridded "
+         f"{g_syncs.count}, phase 5's step {step_syncs.count}")
+    print(f"  launches per frame equal phase 5's: "
+          f"{', '.join(f'{k} {v[:3]}...' for k, v in per_frame.items())}")
+    print(f"  final position, raw vs pre-gridded step: "
+          + ", ".join(f"{k} {v:.2e} m" for k, v in diff.items()) + f" (bound {RESUME_TOL} m)")
+    print(f"  synchronising calls in frame {SYNC_FRAME}: raw {syncs.count} ({', '.join(syncs.sites)}), "
+          f"pre-gridded {g_syncs.count}, phase 5's step {step_syncs.count}"
+          + (f"; other warnings: {syncs.other}" if syncs.other else ""))
+    print(f"  raw step {ms_line(frame_ms, 5, card)}")
+    print(f"  pre-gridded step {ms_line(g_ms, 5, card)}")
+
+
+def check_validation_drive(cfg, ext, card):
+    """Phase 12: the validation drive of ``tools/validate_drive`` (snake
+    course, speed 0.9, yaw amplitude 0.004) on VALIDATION_FRAMES frames made
+    once, in (D) with the unreliable-point exclusion off and then on: MO
+    final error within DRIFT_TOL of the path in both."""
+    import dataclasses
+
+    from vloam_tpu_torch.data import stream
+    from vloam_tpu_torch.ops import fused_gn, fused_knn, patch_gather
+    from vloam_tpu_torch.tools import validate_drive
+
+    print(f"== phase 12: tools.validate_drive, snake course, kitti_hdl64, {VALIDATION_FRAMES} "
+          f"frames, (D) without and with exclude_unreliable [{card}]")
+    t0 = time.perf_counter()
+    frames, poses = stream.gen_frames(cfg, ext, VALIDATION_FRAMES, speed=0.9, yaw_rate=0.004,
+                                      snake=True)
+    gen_s = time.perf_counter() - t0
+    counters = launch_counters()
+    for excl in (False, True):
+        vcfg = cfg.replace(scan=dataclasses.replace(cfg.scan, exclude_unreliable=excl))
+        fresh_device(ext.P_rect0.device)
+        fused_knn.LAUNCHES = fused_gn.LAUNCHES = fused_gn.LAUNCHES_VO = patch_gather.LAUNCHES = 0
+        rec = validate_drive.drive(vcfg, ext, frames, poses, frame_gen_s=gen_s)
+        got = {k: get() for k, get in counters.items()}
+        n = VALIDATION_FRAMES
+        assert got == {"knn_pair": 4 * (n - 1), "gn_lidar": 4 * (n - 1), "gn_vo": n,
+                       "gather_patches": n + 4}, f"{rec['mode']}: launches {got}"
+        assert rec["final_err_pct"] <= DRIFT_TOL * 100, f"{rec['mode']}: {rec}"
+        print(f"  {rec['mode']}: MO final error {rec['final_err_m']:.4f} m over "
+              f"{rec['path_len_m']} m ({rec['final_err_pct']:.3f} %, bound {DRIFT_TOL * 100:.0f} %), "
+              f"ATE {rec['ate_m']:.4f} m, mo_trans_pct {rec['mo_trans_pct']} "
+              f"({rec['segments']} segments of 100 m or more), steady "
+              f"{rec['steady_ms_per_frame']:.3f} ms/frame (frames {validate_drive.STEADY_FROM}.."
+              f"{n - 1}, one fetch at the end); launches {got} [{card}]")
+    print(f"  {VALIDATION_FRAMES} frames made in {gen_s:.1f} s (not timed)")
 
 
 if __name__ == "__main__":

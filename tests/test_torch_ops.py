@@ -207,9 +207,10 @@ def test_port_never_imports_jax():
     """Importing the port and running a small slice (two frames, so LO and
     MO both solve), two frames of the full step, the runtime entry point
     (VloamDriver with a checkpoint, keyframes, trajectory export and the
-    CLI's ``main`` with --refine --loop-closure) and the close() epilogue's
+    CLI's ``main`` with --refine --loop-closure), the close() epilogue's
     modules (keyframe features, a loop registration, a banded pose-graph
-    solve) loads no jax module."""
+    solve), the native host library's binding, the scenario worlds, the
+    raw-cloud step and the validation-drive tool loads no jax module."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -263,6 +264,19 @@ def test_port_never_imports_jax():
             loop = loop_closure.loop_factors([(0, 3)], [np.array([0, 0, 0, 1.0, 1.6, 0, 0])])
             start = torch.tensor([[0, 0, 0, 1.0, 0.5 * k, 0, 0] for k in range(4)])
             assert torch.isfinite(pose_graph.optimize_pose_graph_banded(start, chain, loop)).all()
+        from vloam_tpu_torch.data import scenarios
+        from vloam_tpu_torch.runtime import native
+        from vloam_tpu_torch.tools import validate_drive
+        assert native.available() or native.toolchain_missing()
+        assert scenarios.corridor_scene(50.0).shape == (2, 6)
+        p, m = synthetic.pad_cloud(synthetic.simulate_scan(np.eye(3), np.zeros(3), scene,
+                                                           n_azimuth=200), cfg.scan.max_points)
+        _, rout = vloam.vloam_step(vloam.init_vloam_state(cfg, "cpu"), torch.tensor(frames[0][0]),
+                                   torch.tensor(p), torch.tensor(m), ext, cfg, pre_gridded=False)
+        assert all(np.isfinite(v.numpy()).all() for v in rout)
+        snake, snake_poses = stream.gen_frames(cfg, ext, 2, n_azimuth=200, snake=True, hard=True)
+        rec = validate_drive.drive(cfg, ext, snake, snake_poses, hard=True)
+        assert rec["mode"] == "hard_decoupled_D" and np.isfinite(rec["final_err_m"])
         C.kitti_hdl64 = lambda: cfg
         cli.main(["--device", "cpu", "--frames", "2", "--json"])
         cli.main(["--device", "cpu", "--frames", "3", "--json", "--refine", "--loop-closure"])
@@ -272,6 +286,9 @@ def test_port_never_imports_jax():
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    # two threads, as the suite's workers run torch: eight in each process
+    # beside five busy workers only fight over the cores
+    env["OMP_NUM_THREADS"] = "2"
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=300)
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]

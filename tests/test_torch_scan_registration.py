@@ -50,13 +50,3 @@ def test_features_match_reference(both, cloud, atol):
     np.testing.assert_array_equal(getattr(got, cloud + "_mask").numpy(), mask)
     assert mask.sum() > 50
     np.testing.assert_allclose(getattr(got, cloud).numpy(), getattr(want, cloud), atol=atol, rtol=0)
-
-
-@pytest.mark.parametrize("change", ["exclude_unreliable"])
-def test_unported_options_raise(both, change):
-    _, _, (grid, gmask, n_per_ring, lf) = both
-    table = (torch.tensor(lf[0]), torch.tensor(lf[1]), lf[2])
-    cfg = tconfig.ScanConfig(**SC, exclude_unreliable=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        extract_features_from_grid(torch.tensor(grid), torch.tensor(gmask),
-                                   torch.tensor(n_per_ring), cfg, lf_table=table)

@@ -13,8 +13,8 @@ dataset directly (no ROS):
 Also understands the KITTI *odometry* benchmark layout:
   <root>/sequences/<NN>/velodyne/NNNNNN.bin, image_0/NNNNNN.png, calib.txt
 
-Host-side NumPy; the native C++ prefetcher of the reference (not ported, ROADMAP A2) offers the
-same frames with async readahead.
+Host-side NumPy; ``runtime/native.NativePrefetcher`` offers the same frames with
+asynchronous readahead (``runtime/driver.run_kitti`` uses it when the library is built).
 """
 
 from __future__ import annotations

@@ -110,6 +110,47 @@ def straight_trajectory(n_frames: int, speed: float = 1.0, yaw_rate: float = 0.0
     return poses
 
 
+def snake_trajectory(n_frames: int, speed: float = 1.0, yaw_amp: float = 0.004,
+                     period: int = 100):
+    """Sensor poses weaving along +x: the yaw rate oscillates sinusoidally,
+    so long drives stay inside the street (a constant yaw rate curves off
+    the scene after ~100 frames)."""
+    poses = []
+    yaw = 0.0
+    t = np.zeros(3)
+    for i in range(n_frames):
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+        poses.append((R.copy(), t.copy()))
+        t = t + R @ np.array([speed, 0.0, 0.0])
+        yaw += yaw_amp * np.sin(2.0 * np.pi * i / period)
+    return poses
+
+
+def turns_trajectory(n_frames: int, speed: float = 1.0, straight: int = 60,
+                     turn_frames: int = 12, turn_angle: float = np.pi / 2,
+                     alternate: bool = True):
+    """Urban block route: straights joined by sharp turns of ``turn_angle``
+    over ``turn_frames`` frames (real KITTI turns reach ~0.09 rad a frame);
+    ``alternate`` flips the turn direction so the route stays compact."""
+    poses = []
+    yaw = 0.0
+    t = np.zeros(3)
+    period = straight + turn_frames
+    sign = 1.0
+    for i in range(n_frames):
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+        poses.append((R.copy(), t.copy()))
+        t = t + R @ np.array([speed, 0.0, 0.0])
+        phase = i % period
+        if phase >= straight:
+            yaw += sign * turn_angle / turn_frames
+            if alternate and phase == period - 1:
+                sign = -sign
+    return poses
+
+
 def pad_cloud(pts: np.ndarray, cap: int) -> tuple[np.ndarray, np.ndarray]:
     """(N,3) -> padded ((cap,3), (cap,) mask)."""
     n = min(len(pts), cap)

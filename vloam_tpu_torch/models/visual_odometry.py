@@ -7,7 +7,8 @@ corners are either tracked into it by forward-backward pyramidal LK, seeded
 by the motion prior (``optical_flow_match=True``), or matched to the current
 corners by ORB/BRIEF descriptors and brute-force Hamming distance
 (``optical_flow_match=False``, ``ops/orb``); depth for each previous corner
-from the previous frame's lidar depth buckets; matches with depth give 3D-2D
+from the previous frame's lidar depth buckets (built by the host, or here
+from the cloud when none are given); matches with depth give 3D-2D
 reprojection residuals, the rest 2D-2D epipolar residuals; one fused GN
 solve (``ops/fused_gn``, the CUDA kernel B4) gives cam0_curr_T_cam0_last.
 
@@ -20,8 +21,8 @@ patterns (see ``ops/orb``), in the state and in a checkpoint.
 
 Not ported (ROADMAP A5): CLAHE, the descriptor families other than ORB and
 BRIEF and the approximate (``flann``) matcher, which the reference reaches
-through its ``image_util`` facade, ``keypoint_nms``, detectors other than
-Shi-Tomasi, and the device-side depth-bucket build (``pre_buckets=None``).
+through its ``image_util`` facade, ``keypoint_nms`` and detectors other
+than Shi-Tomasi.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ import torch
 from vloam_tpu_torch import geometry as geo
 from vloam_tpu_torch.config import VloamConfig
 from vloam_tpu_torch.ops import image_ops, orb
-from vloam_tpu_torch.ops.depth_map import DepthBuckets, bucket_shape, query_depth
+from vloam_tpu_torch.ops.depth_map import (DepthBuckets, bucket_shape, build_buckets,
+                                           project_cloud, query_depth)
 from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_vo
 
 
@@ -123,13 +125,16 @@ def _ray(K_inv: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
 
 
 def vo_step(state: VoState, img: torch.Tensor, K: torch.Tensor, cfg: VloamConfig,
-            lo_prior: torch.Tensor | None = None, pre_buckets: DepthBuckets | None = None):
+            lo_prior: torch.Tensor | None = None, pre_buckets: DepthBuckets | None = None,
+            cloud: torch.Tensor | None = None, cloud_mask: torch.Tensor | None = None,
+            proj: torch.Tensor | None = None):
     """One VO frame.  Returns (new_state, cam0_curr_T_cam0_last pose).
 
     ``pre_buckets`` is the depth-bucket grid of the CURRENT cloud, built by
-    the host data layer.  The reference's ``cloud``, ``cloud_mask`` and
-    ``proj`` arguments feed only the device-side bucket build, which is not
-    ported (ROADMAP A5), so they are not taken."""
+    the host data layer.  Without it the buckets are built here from
+    ``cloud`` (N, 3), ``cloud_mask`` (N,) and ``proj`` (3, 4)
+    (``depth_map.project_cloud`` + ``build_buckets``), which feed nothing
+    else."""
     vc = cfg.visual
     if vc.clahe:
         raise NotImplementedError("VisualConfig.clahe is not ported yet (ROADMAP A5)")
@@ -141,9 +146,8 @@ def vo_step(state: VoState, img: torch.Tensor, K: torch.Tensor, cfg: VloamConfig
             "matcher")
     if vc.keypoint_nms:
         raise NotImplementedError("VisualConfig.keypoint_nms is not ported yet (ROADMAP A5)")
-    if pre_buckets is None:
-        raise NotImplementedError(
-            "the device-side depth-bucket build (pre_buckets=None) is not ported yet (ROADMAP A5)")
+    if pre_buckets is None and (cloud is None or cloud_mask is None or proj is None):
+        raise ValueError("vo_step needs pre_buckets, or cloud, cloud_mask and proj to build them")
     dev = img.device
     count = state.count
 
@@ -202,6 +206,8 @@ def vo_step(state: VoState, img: torch.Tensor, K: torch.Tensor, cfg: VloamConfig
     enough = torch.sum(track_ok) >= 10
     pose = torch.where(enough, solved, pose0) if count > 0 else pose0
 
+    if pre_buckets is None:
+        pre_buckets = build_buckets(*project_cloud(cloud, cloud_mask, proj, vc), vc)
     new_state = VoState(
         prev_img=img,
         prev_pts=pts,

@@ -1,5 +1,4 @@
-"""The full VLOAM frame step (port of ``vloam_tpu/models/vloam.py`` on its
-``pre_gridded=True`` path).
+"""The full VLOAM frame step (port of ``vloam_tpu/models/vloam.py``).
 
 One step in the reference's callback order (vloam_main_node.cpp:134-202):
 image -> VO -> frame-graph conversion -> scan registration -> LO (seeded by
@@ -11,11 +10,12 @@ its previous solution and VO is a passenger; coupled, VO's motion in the
 velodyne frame seeds LO.  In both, LO's motion seeds the next frame's VO.
 
 ``VloamState.count`` is a host ``int``, so the frame-0 anchor and the
-mapping skip are Python branches, not device reads.  The host data layer
-builds the ring grid, the less-flat table and the depth buckets
-(``data/gridding``); ``frame_to_device`` moves them to the card.  The raw
-cloud path (``pre_gridded=False``) and the sharded mapping are not ported
-(ROADMAP A5, A6b).
+mapping skip are Python branches, not device reads.  On the main path the
+host data layer builds the ring grid, the less-flat table and the depth
+buckets (``data/gridding`` or ``runtime/native``) and ``frame_to_device``
+moves them to the card; given a raw padded cloud (``pre_gridded=False``)
+or no buckets, the step builds them on the device with the same kernels
+launched.  The sharded mapping is not ported (ROADMAP A6b).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from vloam_tpu_torch.models.lidar_odometry import (LoState, init_lo_state, lo_st
 from vloam_tpu_torch.models.visual_odometry import (VoState, init_vo_state, vo_state_from_numpy,
                                                     vo_step)
 from vloam_tpu_torch.ops.depth_map import DepthBuckets
-from vloam_tpu_torch.ops.scan_registration import extract_features_from_grid
+from vloam_tpu_torch.ops.scan_registration import extract_features, extract_features_from_grid
 
 
 class VloamState(NamedTuple):
@@ -116,27 +116,36 @@ def vloam_step(state: VloamState, img, cloud, cloud_mask, ext: fg.Extrinsics, cf
                pre_gridded: bool = False, pre_buckets: DepthBuckets | None = None,
                pre_lf_table=None):
     """One frame.  ``cloud``/``cloud_mask`` are the host-built ring grid
-    (R, C, 4) and its mask (``pre_gridded=True``, the only path ported);
-    ``pre_buckets`` and ``pre_lf_table`` come from the host data layer.
-    Returns (new_state, VloamOutputs)."""
-    if not pre_gridded:
-        raise NotImplementedError(
-            "vloam_step on a raw cloud (pre_gridded=False) is not ported yet (ROADMAP A5)")
-    grid, gmask = cloud, cloud_mask
-    n_per_ring = gmask.sum(dim=1)
+    (R, C, 4) and its mask (``pre_gridded=True``), or a raw padded cloud
+    (N, >=3) and its mask (``pre_gridded=False``: ``organize_scan`` grids
+    it on the device and the less-flat cloud is reduced there, so
+    ``pre_lf_table`` is not read).  ``pre_buckets`` and ``pre_lf_table``
+    come from the host data layer; without ``pre_buckets`` VO builds the
+    depth buckets from the cloud.  Returns (new_state, VloamOutputs)."""
+    if pre_gridded:
+        grid, gmask = cloud, cloud_mask
+        flat_cloud, flat_mask = grid.reshape(-1, 4)[:, :3], gmask.reshape(-1)
+    else:
+        flat_cloud, flat_mask = cloud[..., :3], cloud_mask
     count = state.count
 
     # ---- visual odometry (vloam_main_node.cpp:147-174) ----------------------
     K = ext.P_rect0[:, :3]
+    proj = None if pre_buckets is not None else ext.P_rect0 @ ext.R_rect0 @ ext.cam_T_velo
     vo_state, cam0_curr_T_cam0_last = vo_step(
-        state.vo, img, K, cfg, lo_prior=state.cam0_curr_LOT_cam0_prev, pre_buckets=pre_buckets)
+        state.vo, img, K, cfg, lo_prior=state.cam0_curr_LOT_cam0_prev, pre_buckets=pre_buckets,
+        cloud=flat_cloud, cloud_mask=flat_mask, proj=proj)
 
     # frame-graph conversion + world accumulation (vloam_main_node.cpp:176-181)
     velo_last_VOT_velo_curr = fg.vo_to_velo(cam0_curr_T_cam0_last, ext)
     world_VOT_base = fg.accumulate_world(state.world_VOT_base, velo_last_VOT_velo_curr)
 
     # ---- scan registration + LO + mapping (:186-190) ------------------------
-    feats = extract_features_from_grid(grid, gmask, n_per_ring, cfg.scan, lf_table=pre_lf_table)
+    if pre_gridded:
+        feats = extract_features_from_grid(grid, gmask, gmask.sum(dim=1), cfg.scan,
+                                           lf_table=pre_lf_table)
+    else:
+        feats = extract_features(flat_cloud, flat_mask, cfg.scan)
     vo_prior = None if cfg.detach_vo_lo else velo_last_VOT_velo_curr
     lo_state, lo_delta, world_LOT_base, lo_corr = lo_step(state.lo, feats, cfg, vo_prior=vo_prior)
     cam0_curr_LOT_cam0_prev = fg.lo_delta_to_cam0(lo_delta, ext)

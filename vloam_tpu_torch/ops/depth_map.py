@@ -1,14 +1,12 @@
-"""Lidar-to-camera depth association, query side (port of
-``vloam_tpu/ops/depth_map.py``).
+"""Lidar-to-camera depth association (port of ``vloam_tpu/ops/depth_map.py``).
 
-The host data layer (``data/gridding.depth_buckets``) averages the
-projected cloud into a 5 px bucket grid; ``query_depth`` answers
-per-keypoint depth queries with an inverse-distance-weighted 3-NN over the
-5x5 bucket neighbourhood, requiring >= 10 occupied neighbours and a 3-NN
-depth spread within ``depth_spread_gate`` (point_cloud_util.cpp:381-487).
-
-The device-side projection and bucket build (``project_cloud``,
-``build_buckets``, the raw-cloud path) are not ported (ROADMAP A5).
+The projected cloud is averaged into a 5 px bucket grid, on the host
+(``data/gridding.depth_buckets``, the main path) or on the device
+(``project_cloud`` + ``build_buckets``, when VO is given no buckets);
+``query_depth`` answers per-keypoint depth queries with an
+inverse-distance-weighted 3-NN over the 5x5 bucket neighbourhood, requiring
+>= 10 occupied neighbours and a 3-NN depth spread within
+``depth_spread_gate`` (point_cloud_util.cpp:381-487).
 """
 
 from __future__ import annotations
@@ -33,6 +31,41 @@ class DepthBuckets(NamedTuple):
 def bucket_shape(cfg: VisualConfig) -> tuple[int, int]:
     g = cfg.downsample_grid
     return (-(-cfg.img_width // g), -(-cfg.img_height // g))
+
+
+def project_cloud(points: torch.Tensor, mask: torch.Tensor, proj: torch.Tensor,
+                  cfg: VisualConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Velodyne cloud (N, 3) -> image-plane (u, v, depth) (N, 3) and its
+    validity (in front of the camera), through proj = P_rect0 R_rect0
+    cam_T_velo (3, 4)."""
+    ph = torch.cat([points, torch.ones_like(points[:, :1])], dim=1)
+    uvz = ph @ proj.T
+    z = uvz[:, 2]
+    ok = mask & (z > cfg.min_projection_depth)
+    uv = uvz[:, :2] / torch.clamp(z[:, None], min=1e-6)
+    return torch.cat([uv, z[:, None]], dim=1), ok
+
+
+def build_buckets(uvz: torch.Tensor, mask: torch.Tensor, cfg: VisualConfig) -> DepthBuckets:
+    """Average the projected points into the (W/g, H/g) bucket grid (exact
+    means; the reference's incremental form forgets a bucket's first hit)."""
+    bw, bh = bucket_shape(cfg)
+    g = cfg.downsample_grid
+    nb = bw * bh
+    # int32 truncation of a true f32 division, as in query_depth
+    ix = div_exact(uvz[:, 0], g).to(torch.int32)
+    iy = div_exact(uvz[:, 1], g).to(torch.int32)
+    ok = (mask & (ix >= 0) & (ix < bw) & (iy >= 0) & (iy < bh)
+          & (uvz[:, 0] >= 0) & (uvz[:, 1] >= 0))
+    flat = torch.where(ok, ix.to(torch.int64) * bh + iy, nb)
+    # the rejects land on a scrap row; float atomics on CUDA (the sums' order
+    # varies from run to run; the counts are exact)
+    aug = torch.where(ok[:, None], torch.cat([uvz, torch.ones_like(uvz[:, :1])], dim=1), 0.0)
+    sums = torch.zeros((nb + 1, 4), dtype=uvz.dtype, device=uvz.device).index_add_(0, flat, aug)
+    cnt = sums[:nb, 3]
+    means = sums[:nb, :3] / torch.clamp(cnt[:, None], min=1.0)
+    return DepthBuckets(u=means[:, 0].reshape(bw, bh), v=means[:, 1].reshape(bw, bh),
+                        z=means[:, 2].reshape(bw, bh), count=cnt.reshape(bw, bh))
 
 
 def query_depth(buckets: DepthBuckets, pts: torch.Tensor, cfg: VisualConfig) -> torch.Tensor:

@@ -1,17 +1,19 @@
-"""LOAM feature extraction from a host-built ring grid (port of
-``vloam_tpu/ops/scan_registration.extract_features_from_grid``).
+"""LOAM feature extraction (port of ``vloam_tpu/ops/scan_registration.py``).
 
 The cloud lives on a dense (n_scans, ring_cap) grid, points in scan order
-within each ring, so the 11-point curvature and the +-5 neighbour
-suppression are shifts along the ring axis.  The greedy per-(ring, sector)
-edge/planar selection runs as K masked-argmax rounds over all sectors at
-once, on each sector's top-64 candidates.
+within each ring, so the 11-point curvature, the +-5 neighbour suppression
+and the unreliable-point marking are shifts along the ring axis.  The grid
+comes from the host (``data/gridding.grid_cloud``, the main path) or from
+``organize_scan`` on the device (``extract_features``, a raw padded cloud).
+The greedy per-(ring, sector) edge/planar selection runs as K masked-argmax
+rounds over all sectors at once, on each sector's top-64 candidates.
 
 Feature points are (x, y, z, w) with w = ring + 0.1 * rel_time.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -37,6 +39,89 @@ class ScanFeatures(NamedTuple):
     less_flat_mask: torch.Tensor
 
 
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis, as ``jnp.linalg.norm`` forms it."""
+    return torch.sqrt(torch.sum(x * x, dim=-1))
+
+
+def assign_rings(points: torch.Tensor, mask: torch.Tensor, cfg: ScanConfig):
+    """Vertical angle -> ring id per the reference's sensor formulas
+    (scan_registration.cpp:217-254; C truncation toward zero).  Returns
+    (ring (N,) int32, valid (N,) bool)."""
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    horiz = torch.sqrt(x * x + y * y)
+    angle = torch.atan2(z, torch.clamp(horiz, min=1e-12)) * (180.0 / math.pi)
+    if cfg.n_scans == 16:
+        sid = ((angle + 15.0) / 2.0 + 0.5).to(torch.int32)
+        ok = (sid >= 0) & (sid <= cfg.n_scans - 1)
+    elif cfg.n_scans == 32:
+        sid = ((angle + 92.0 / 3.0) * 3.0 / 4.0).to(torch.int32)
+        ok = (sid >= 0) & (sid <= cfg.n_scans - 1)
+    elif cfg.n_scans == 64:
+        upper = ((2.0 - angle) * 3.0 + 0.5).to(torch.int32)
+        lower = cfg.n_scans // 2 + ((-8.83 - angle) * 2.0 + 0.5).to(torch.int32)
+        sid = torch.where(angle >= -8.83, upper, lower)
+        ok = (angle <= 2.0) & (angle >= -24.33) & (sid >= 0) & (sid <= 50)
+    else:
+        raise ValueError(f"unsupported n_scans={cfg.n_scans}")
+    return sid, mask & ok
+
+
+def relative_times(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Azimuth relative time in [0, 1] (the startOri/endOri unwrap of
+    scan_registration.cpp:185-294): ((-atan2(y, x)) - start) mod 2 pi over
+    the sweep from the first to the last valid point."""
+    ori = -torch.atan2(points[:, 1], points[:, 0])
+    n = points.shape[0]
+    m8 = mask.to(torch.uint8)
+    first = torch.argmax(m8).view(1)                       # first valid index
+    last = (n - 1 - torch.argmax(m8.flip(0))).view(1)      # last valid index
+    start = ori.index_select(0, first)
+    end = ori.index_select(0, last) + 2.0 * math.pi
+    end = torch.where(end - start > 3.0 * math.pi, end - 2.0 * math.pi,
+                      torch.where(end - start < math.pi, end + 2.0 * math.pi, end))
+    sweep = torch.clamp(end - start, min=1e-6)
+    # jnp.mod: fmod, then moved into [0, 2 pi)
+    rel = torch.fmod(ori - start, 2.0 * math.pi)
+    rel = torch.where(rel < 0, rel + 2.0 * math.pi, rel)
+    return torch.clamp(rel / sweep, 0.0, 1.0)
+
+
+def organize_scan(points: torch.Tensor, mask: torch.Tensor, cfg: ScanConfig):
+    """Raw padded cloud (N, >=3) + mask (N,) -> (grid (R, C, 4) xyzw, grid
+    mask (R, C), n_per_ring (R,) int32).  Points keep their scan order
+    within each ring; each ring's valid points fill columns [0, n_r).  The
+    device twin of ``data/gridding.grid_cloud``."""
+    R, C = cfg.n_scans, cfg.ring_cap
+    dev = points.device
+    xyz = points[:, :3]
+    mask = (mask & (_norm(xyz) >= cfg.minimum_range)
+            & torch.all(torch.isfinite(xyz), dim=-1))
+    ring, mask = assign_rings(points, mask, cfg)
+    rel = relative_times(points, mask)
+    pts4 = torch.cat([xyz, (ring.to(torch.float32) + cfg.scan_period * rel)[:, None]], dim=1)
+
+    # rank within the ring = the number of earlier valid points of that ring:
+    # a one-hot cumsum keeps scan order without a sort.  The one-hot is (R, N)
+    # int32 so the scan runs along the contiguous axis: along the outer axis
+    # of an (N, R) one-hot, CUDA's scan runs one thread a column and was most
+    # of the raw step's time (chip_smoke.py phase 11).
+    oh = ((ring[None, :] == torch.arange(R, dtype=torch.int32, device=dev)[:, None])
+          & mask[None, :]).to(torch.int32)
+    before = torch.cumsum(oh, dim=1, dtype=torch.int32) - oh
+    rank = torch.gather(before, 0, torch.clamp(ring, 0, R - 1).to(torch.int64)[None, :])[0]
+
+    ok = mask & (rank < C)
+    # every valid point has its own cell; the rest land on a scrap row
+    flat_idx = torch.where(ok, ring.to(torch.int64) * C + rank, R * C)
+    grid = torch.zeros((R * C + 1, 4), dtype=torch.float32, device=dev)
+    grid.index_put_((flat_idx,), torch.where(ok[:, None], pts4, 0.0))
+    gmask = torch.zeros((R * C + 1,), dtype=torch.bool, device=dev)
+    gmask.index_put_((flat_idx,), ok)
+    gmask = gmask[:-1].reshape(R, C)
+    return grid[:-1].reshape(R, C, 4), gmask, gmask.sum(dim=1, dtype=torch.int32)
+
+
 def ring_curvature(grid, n_per_ring, cfg: ScanConfig):
     """11-point curvature per grid cell + selectability mask (cells without
     ``curvature_window`` neighbours on both sides are unselectable)."""
@@ -49,6 +134,46 @@ def ring_curvature(grid, n_per_ring, cfg: ScanConfig):
     col = torch.arange(grid.shape[1], device=grid.device)[None, :]
     selectable = (col >= w) & (col <= n_per_ring[:, None] - w - 1)
     return curv, selectable
+
+
+def unreliable_mask(grid: torch.Tensor, gmask: torch.Tensor, cfg: ScanConfig) -> torch.Tensor:
+    """Original LOAM's occluded and parallel-beam marking: (R, C) bool, True
+    = not selectable as a feature (loam_velodyne scanRegistration.cpp, the
+    cloudNeighborPicked pre-pass, which the A-LOAM-derived reference drops).
+
+    * Occlusion: ring neighbours i, i+1 more than 0.1 m^2 apart and on
+      nearly the same ray (the farther point scaled to the nearer depth lies
+      within 0.1 of that depth) are a silhouette edge; the 6 points on the
+      farther side are marked.
+    * Parallel beam: a point whose squared gaps to both ring neighbours
+      exceed 0.0002 * depth^2 lies on a surface nearly parallel to the beam.
+    """
+    xyz = grid[..., :3]
+    r = _norm(xyz)
+    nxt = torch.roll(xyz, -1, dims=1)
+    r_nxt = torch.roll(r, -1, dims=1)
+    pair_ok = gmask & torch.roll(gmask, -1, dims=1)
+    diff_next = torch.sum((nxt - xyz) ** 2, dim=-1)
+
+    # occlusion: i farther -> mark i-5..i; i+1 farther -> mark i+1..i+6; the
+    # gate divides by the farther depth (the reference's comment explains why)
+    big = pair_ok & (diff_next > 0.1)
+    safe_rn = torch.clamp(r_nxt, min=1e-6)
+    safe_r = torch.clamp(r, min=1e-6)
+    d_far_i = _norm(nxt * (r / safe_rn)[..., None] - xyz)
+    d_far_n = _norm(nxt - xyz * (r_nxt / safe_r)[..., None])
+    mark_back = big & (r > r_nxt) & (d_far_i / safe_r < 0.1)
+    mark_fwd = big & (r <= r_nxt) & (d_far_n / safe_rn < 0.1)
+    unrel = torch.zeros_like(gmask)
+    for l in range(6):
+        unrel = unrel | torch.roll(mark_back, -l, dims=1)       # edge at i+l
+        unrel = unrel | torch.roll(mark_fwd, l + 1, dims=1)     # edge at i-1-l
+
+    # parallel beam: both neighbour gaps > 0.0002 * depth^2
+    diff_prev = torch.roll(diff_next, 1, dims=1)
+    prev_ok = torch.roll(pair_ok, 1, dims=1)
+    thresh = 0.0002 * r * r
+    return unrel | (pair_ok & prev_ok & (diff_next > thresh) & (diff_prev > thresh))
 
 
 def _suppression_reach(grid, gmask, cfg: ScanConfig):
@@ -107,6 +232,13 @@ def _greedy(vals, cols, n_rounds):
     return stack(sel_col), stack(sel_val), stack(sel_f), stack(sel_b)
 
 
+def extract_features(points: torch.Tensor, mask: torch.Tensor, cfg: ScanConfig) -> ScanFeatures:
+    """Raw padded cloud -> LOAM feature clouds: ``organize_scan``, then the
+    device-side less-flat reduction (``lf_table=None``)."""
+    grid, gmask, n_per_ring = organize_scan(points, mask, cfg)
+    return extract_features_from_grid(grid, gmask, n_per_ring, cfg)
+
+
 def extract_features_from_grid(
     grid: torch.Tensor,        # (R, C, 4) xyzw ring grid
     gmask: torch.Tensor,       # (R, C) bool
@@ -123,10 +255,8 @@ def extract_features_from_grid(
     all rings, keyed by ring id, of the valid cells that are not edges: the
     reference's per-ring voxel filter, and what loop closure extracts its
     keyframe features with.  The two give different rows wherever an edge
-    sits mid-run."""
-    if cfg.exclude_unreliable:
-        raise NotImplementedError(
-            "ScanConfig.exclude_unreliable is not ported yet (ROADMAP A5)")
+    sits mid-run.  ``cfg.exclude_unreliable`` removes ``unreliable_mask``'s
+    points from the edge and planar candidates."""
     dev = grid.device
     curv, selectable = ring_curvature(grid, n_per_ring, cfg)
     fwd, bwd = _suppression_reach(grid, gmask, cfg)
@@ -142,6 +272,8 @@ def extract_features_from_grid(
     sector = torch.clamp(((col - w) * S) // span, 0, S - 1)
     ring_ok = (n_per_ring[:, None] - 2 * w - 1) >= 6
     selectable = selectable & gmask & ring_ok
+    if cfg.exclude_unreliable:
+        selectable = selectable & ~unreliable_mask(grid, gmask, cfg)
     sector_oh = sector[:, None, :] == torch.arange(S, device=dev)[None, :, None]  # (R, S, C)
 
     RS = R * S
@@ -193,9 +325,10 @@ def extract_features_from_grid(
     flat, flat_mask = gather_slots(flat_slots, flat_valid, cfg.max_flat)
 
     if lf_table is None:
-        edge_lab = torch.zeros((R, C + 1), dtype=torch.bool, device=dev)
-        edge_lab[torch.arange(R, device=dev)[:, None],
-                 torch.where(edge_valid, edge_slots, C).reshape(R, -1)] = True
+        # a scatter of the scalar: assigning it through index tensors
+        # (edge_lab[rows, cols] = True) synchronised with the card
+        edge_lab = torch.zeros((R, C + 1), dtype=torch.bool, device=dev).scatter_(
+            1, torch.where(edge_valid, edge_slots, C).reshape(R, -1), True)
         lf_mask = gmask & ~edge_lab[:, :C]
         ring_id = torch.arange(R, device=dev)[:, None].expand(R, C)
         less_flat, less_flat_mask = voxel_downsample(

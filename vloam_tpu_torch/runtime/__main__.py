@@ -8,11 +8,12 @@ It runs on the GPU unless ``--device cpu`` is given; without a GPU the
 default raises.  ``--descriptor-match`` runs VO on ORB (or ``--descriptor
 brief``) descriptors with the brute-force matcher.  ``--refine`` fuses the
 three chains in a pose graph when the run ends (``MO{d}_refined.txt``);
-``--loop-closure`` adds loop factors between revisited keyframes.  Flags of
-features that are not ported yet (``--debug-dir``, the other descriptor
-families and detectors, ``--matcher flann``, ``--clahe``, ``--distortion``,
-``--exclude-unreliable``) are passed on and the module that would implement
-them raises ``NotImplementedError``.
+``--loop-closure`` adds loop factors between revisited keyframes;
+``--exclude-unreliable`` keeps occluded and parallel-beam points out of the
+features.  Flags of features that are not ported yet (``--debug-dir``, the
+other descriptor families and detectors, ``--matcher flann``, ``--clahe``,
+``--distortion``) are passed on and the module that would implement them
+raises ``NotImplementedError``.
 
 Examples:
   # synthetic end-to-end smoke (no data needed)

@@ -22,9 +22,14 @@ Per frame the host reads the device once: the three deltas, the three world
 poses and the LO correspondence counts come back as one stacked tensor, and
 the host arrays go up through pinned memory without blocking.
 
+The host stages build the depth buckets and the less-flat table in the
+C++ host library (``runtime/native``) when it is available, else in NumPy
+(``data/gridding``); ``run_kitti`` reads and grids frames in the library's
+prefetcher threads.  ``process`` grids the raw cloud in NumPy, as the
+reference driver does.
+
 The device is ``"cuda"`` unless the caller passes another; a missing GPU
-raises.  Not ported: the native C++ host library and its prefetcher
-(ROADMAP A2), debug PNGs (A5).
+raises.  Not ported: debug PNGs (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from vloam_tpu_torch.parallel.loop_closure import (detect_revisits, loop_factors
                                                    register_loop)
 from vloam_tpu_torch.parallel.pose_graph import (PoseGraphFactors, concat_factors,
                                                  odometry_factors, optimize_pose_graph_banded)
+from vloam_tpu_torch.runtime import native
 from vloam_tpu_torch.utils.profiling import StageTimer
 from vloam_tpu_torch.utils.trajectory import TrajectoryWriter
 
@@ -233,13 +239,15 @@ class VloamDriver:
         grid, gmask = np.asarray(grid), np.asarray(gmask)
         if self.loop_closure and self.count % self.keyframe_every == 0:
             self._keyframes[self.count] = (grid, gmask)
+        use_native = native.available()
         with self.timer.stage("host_buckets"):
             # VO depth buckets built host-side, like the ring gridding
-            bu, bv, bz, bc = depth_buckets(grid.reshape(-1, 4), gmask.reshape(-1), self._proj,
-                                           cfg.visual)
+            make = native.depth_buckets_native if use_native else depth_buckets
+            bu, bv, bz, bc = make(grid.reshape(-1, 4), gmask.reshape(-1), self._proj, cfg.visual)
             buckets = DepthBuckets(*(host_to_device(b, dev) for b in (bu, bv, bz, bc)))
         with self.timer.stage("host_lf_voxel"):
-            sg, bs, nr = less_flat_voxel_table(grid, gmask, cfg.scan)
+            make = native.lf_voxel_table_native if use_native else less_flat_voxel_table
+            sg, bs, nr = make(grid, gmask, cfg.scan)
             lf_table = (host_to_device(sg, dev), host_to_device(bs, dev), int(nr))
         with self.timer.stage("vloam_step"):
             self.state, out = vloam_step(
@@ -579,8 +587,11 @@ def run_kitti(
     loop_kw: dict | None = None,
     device="cuda",
 ):
-    """Run the pipeline over a real KITTI sequence (raw or odometry layout)
-    through the NumPy loaders (the ring gridding runs in the loader loop)."""
+    """Run the pipeline over a real KITTI sequence (raw or odometry layout).
+
+    With the native host library the frames come from its prefetcher, whose
+    threads read, decode and grid them while the device works; without it
+    from the NumPy loaders, gridded in the loop."""
     dev = resolve_device(device)
     ext = extrinsics_from_calib(sequence.calib, dev)
     driver = VloamDriver(cfg, ext, out_dir,
@@ -591,11 +602,27 @@ def run_kitti(
         start = driver.restore_checkpoint(resume)
     end = len(sequence) if end is None else min(end, len(sequence))
     t_per_frame = []
-    for i in range(start, end):
-        f = sequence.frame(i)
-        grid, gmask, _ = grid_cloud(f.cloud, cfg.scan)
+
+    def frames():
+        """Yields (image, grid, gmask)."""
+        if native.available():
+            names = sequence.files[start:end]
+            bins = [os.path.join(sequence.velo_dir, f) for f in names]
+            imgs = ([os.path.join(sequence.img_dir, os.path.splitext(f)[0] + ".png")
+                     for f in names] if sequence.with_images else None)
+            with native.NativePrefetcher(bins, imgs, cfg.scan.max_points, cfg.visual.img_height,
+                                         cfg.visual.img_width, scan_cfg=cfg.scan) as pf:
+                for grid, gmask, _, img in pf.iter_grids():
+                    yield img, grid, gmask
+        else:
+            for i in range(start, end):
+                f = sequence.frame(i)
+                grid, gmask, _ = grid_cloud(f.cloud, cfg.scan)
+                yield f.image, grid, gmask
+
+    for i, (img, grid, gmask) in enumerate(frames(), start):
         t0 = time.perf_counter()
-        driver.process_grid(f.image, grid, gmask)
+        driver.process_grid(img, grid, gmask)
         t_per_frame.append(time.perf_counter() - t0)
         if verbose and (i - start) % 50 == 0:
             print(f"frame {i}  {t_per_frame[-1]*1e3:.1f} ms")
