@@ -27,20 +27,23 @@ Phases, each printed on its own lines:
    at level 0 of a tracked frame, and its single-image and stacked launch
    forms at the ORB frontend's shape and at a BRISK blur stack's; with the
    tolerances below, the median times of both (CUDA events, 20 runs), for
-   the k-NN and Gauss-Newton kernels the device time per call when 20 calls
-   are captured in one CUDA graph and replayed, and each kernel's roofline
-   bound.
+   the k-NN and Gauss-Newton kernels and the gather's two forms (and their
+   index-call library) the device time per call when 20 calls are captured
+   in one CUDA graph and replayed, and each kernel's roofline bound.
    Then (3b) the single-problem map association path, driven with the
    launch counts at 0: MO's two outer iterations with one k-NN launch per
    feature type, against the fused path from the same pose;
    and (3c) the patch-gather measurement tool
    (``vloam_tpu_torch.tools.gather_experiments``) in process, with the
-   launch counts at 0: its eleven kernels, the shipped two-image kernel and
-   the plain gather, each equal to its plain version and timed, then the
-   four exact gathers on four inputs made to break them (one bucket, every
-   alignment and edge, magnitudes 1e-30 to 1e30, 37 keypoints in two bands
-   of each image), the five sweeps on negative images with planted maxima
-   and with a NaN (held with a NaN-aware equality: the NaN masks, then every
+   launch counts at 0: its eleven kernels, the shipped two-image kernel, its
+   single-image and stacked forms and the plain gather, each equal to its
+   plain version and timed (G7's and G8's bounds from the image floats their
+   windows read), then the four exact gathers, G7 and G8 on four inputs
+   made to break them (one bucket, every alignment and edge, magnitudes
+   1e-30 to 1e30, 37 keypoints in two bands of each image; G8 on whole
+   blocks of 32), G7 and G8 on images of NaN, -0.0, subnormals and
+   infinities, the five sweeps on negative images with planted maxima and
+   with a NaN (held with a NaN-aware equality: the NaN masks, then every
    other value bit for bit), and G5 with its maximum at each end of what
    each block of its cluster reads, one call each;
 4. the lidar slice (scan registration -> LO -> MO) alone, 12 frames;
@@ -100,9 +103,9 @@ and the k-NN pair on seven seeds' stacked queries to seven unbatched calls
 row by row.
 
 Then the device kernels one Gauss-Newton wrapper call (the batched one
-included), and one call of G1, G2, G5, G9, G10 and G11, runs
-(torch.profiler, after every timed phase: once it has run, launches cost
-more on the host),
+included), and one call of B2's single-image and stacked forms, G1-G5 and
+G7-G11, runs (torch.profiler, after every timed phase: once it has run,
+launches cost more on the host),
 one JSON line of per-kernel results, the card's name and power limit, and
 last the line ``{"ok": true, "device": {...}}``.  Any failure raises
 and exits nonzero before that line; so does a machine without CUDA.
@@ -368,7 +371,7 @@ def main() -> int:
                 "bound_ms": max(r["ops_ms"], r["bytes_ms"]),
                 "bound_by": "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes",
                 "library_ms": r["library_ms"],
-                **({"device_ms": r["device_ms"]} if "device_ms" in r else {})}
+                **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r}}
 
     kern = [entry(name, source=f"vloam_tpu_torch/csrc/{src}", replaces=rep)
             for name, (src, rep) in KERNELS.items()]
@@ -480,8 +483,12 @@ def check_kernels(cfg, ext, dframes, card):
               f"{bytes_ms:.5f} ms) [{card}]")
         if library is not None:
             r["library_ms"] = time_ms(library)
+            lib_device = ""
+            if graph:
+                r["library_device_ms"] = graph_ms(library)
+                lib_device = f" ({r['library_device_ms']:.4f} ms a call inside a replayed graph)"
             print(f"  {name} {label}: the one PyTorch call for the same function "
-                  f"{r['library_ms']:.4f} ms [{card}]")
+                  f"{r['library_ms']:.4f} ms{lib_device} [{card}]")
         return ms
 
     def cdist_topk(label, q, cand, k):
@@ -993,7 +1000,7 @@ def check_gather_forms(cfg, img, timed, results):
           lambda: patch_gather.gather_patches(smooth, corner),
           lambda: patch_gather.gather_patches_reference(smooth, corner), 0,
           smooth.numel() * 4 + corner.numel() * 4 + got.numel() * 4,
-          library=lambda: windows[cy, cx])
+          library=lambda: windows[cy, cx], graph=True)
 
     stack = blur_stack(img)
     got = patch_gather.gather_patches_stack(stack, corner)
@@ -1009,7 +1016,7 @@ def check_gather_forms(cfg, img, timed, results):
           lambda: patch_gather.gather_patches_stack(stack, corner),
           lambda: patch_gather.gather_patches_stack_reference(stack, corner), 0,
           stack.numel() * 4 + corner.numel() * 4 + got.numel() * 4,
-          library=lambda: stack_windows[:, cy, cx])
+          library=lambda: stack_windows[:, cy, cx], graph=True)
 
 
 def check_stack_path(cfg, img, card):
@@ -1046,6 +1053,8 @@ def check_variants(results, card):
     gv.reset_launches()
     rows = tool.run("cuda", runs=TIMING_RUNS)
     launches = dict(gv.LAUNCHES)
+    _, _, _, imgs, meta = tool.make_inputs(torch.device("cuda"))
+    print(f"  {tool.needed_line(imgs, meta)} [{card}]")
     print(f"  {tool.cluster_line()} [{card}]")
     for line in tool.report(rows, card)[:-1]:
         print(f"  {line}")
@@ -1056,6 +1065,8 @@ def check_variants(results, card):
             results[r["name"]].update(ms=r["ms"], plain_ms=r["plain_ms"], bytes_ms=bytes_ms,
                                       device_ms=r["device_ms"], library_ms=r["library_ms"],
                                       err=r["max_abs_err"])
+            if r["library_device_ms"] is not None:
+                results[r["name"]]["library_device_ms"] = r["library_device_ms"]
             print(f"  {r['name']}: equal to its plain version; {launches[r['name']]} launches; "
                   f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (median of "
                   f"{TIMING_RUNS}), {r['device_ms']:.4f} ms a call inside a CUDA graph; bound "
@@ -1069,10 +1080,11 @@ def check_variants(results, card):
     print("  the sweeps' bounds (G1-G5) are the padded images read once over the HBM rate, while "
           "by their definition G1-G4 read every overlapping strip (4.6x the images) and G5 the "
           "images ten times, after the first pass from L2: none can reach half such a bound and "
-          "stay the sweep it is.  library: one amax over the strips' view "
-          "(G1, G2, G5) or one index call on the view of all windows (G6, G9-G11); none for "
-          "G3, G4 (a maximum per strip, then a sum per eleven: two reductions) and G7, G8 "
-          "(index arithmetic before the index call)")
+          "stay the sweep it is.  G7's and G8's bounds count the image floats their windows "
+          "read, once, with meta and the output (the bytes-needed line).  library: one amax "
+          "over the strips' view (G1, G2, G5) or one index call on the view of all windows "
+          "(G6, G9-G11; G7 and G8 at their windows' origins, computed before the timed call); "
+          "none for G3, G4 (a maximum per strip, then a sum per eleven: two reductions)")
     return launches
 
 
@@ -1097,15 +1109,16 @@ def check_stream_ptr(dev, card):
 
 
 def count_gather_kernels(card):
-    """The device kernels one call of G1-G5, G9, G10 and G11 runs on the
-    tool's inputs, by torch.profiler: one each (no PyTorch operation before
-    the launch).  A call whose profile shows no device event in the retries
-    of ``device_kernels`` fails the run: every count must be measured.  Run
-    after every timed phase, as count_gn_kernels."""
+    """The device kernels one call of B2's single-image and stacked forms,
+    G1-G5 and G7-G11 runs on the tool's inputs, by torch.profiler: one each
+    (no PyTorch operation before the launch).  A call whose profile shows no
+    device event in the retries of ``device_kernels`` fails the run: every
+    count must be measured.  Run after every timed phase, as
+    count_gn_kernels."""
     from vloam_tpu_torch.tools import gather_experiments as tool
 
-    print(f"== device kernels per G1-G5 / G9 / G10 / G11 wrapper call (torch.profiler) "
-          f"[{card}]")
+    print(f"== device kernels per B2 single / stack, G1-G5 / G7-G11 wrapper call "
+          f"(torch.profiler) [{card}]")
     for line, names in tool.kernels_per_call():
         print(f"  {line} [{card}]")
         assert names is not None and len(names) == 1, line

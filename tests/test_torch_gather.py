@@ -77,3 +77,44 @@ def test_out_of_range_corner_raises(bad, rng):
         patch_gather.gather_patches_pair_reference(
             *(torch.tensor(x) for x in (img_a, img_b, ca, cb)), P)
 
+
+
+@pytest.mark.parametrize("form", ["single", "stack"])
+def test_single_and_stack_run_nothing_before_the_launch(form, monkeypatch):
+    """On the kernel's path the single-image and stacked forms run no PyTorch
+    operation but views and the output's allocation, then one launch of the
+    stacked entry, then a view: recorded with the library replaced by a
+    stand-in and every dispatched ATen operation logged."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    log = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            log.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    class Lib:
+        def vloam_gather_patches_stack(self, *args):
+            assert len(args) == len(patch_gather.kernels._SIGNATURES[
+                "vloam_gather_patches_stack"])
+            log.append("launch")
+            return 0
+
+    monkeypatch.setattr(patch_gather.kernels, "lib", Lib)
+    monkeypatch.setattr(patch_gather.kernels, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(patch_gather.kernels, "require_cuda", lambda *tensors: None)
+    monkeypatch.setattr(patch_gather, "LAUNCHES_SINGLE", 0)
+    monkeypatch.setattr(patch_gather, "LAUNCHES_STACK", 0)
+    imgs = torch.empty((3, 376, 1248), device="meta")
+    corners = torch.empty((N, 2), dtype=torch.int32, device="meta")
+    with Record():
+        out = (patch_gather.gather_patches(imgs[0], corners) if form == "single"
+               else patch_gather.gather_patches_stack(imgs, corners))
+    allocs = [op for op in log if op != "launch" and not op.startswith(
+        ("aten.unsqueeze", "aten.select", "aten.alias", "aten.view"))]
+    assert allocs == ["aten.empty.memory_format"] and log.count("launch") == 1
+    assert log.index("launch") > log.index("aten.empty.memory_format")
+    assert tuple(out.shape) == ((N, P, P) if form == "single" else (3, N, P, P))
+    assert (patch_gather.LAUNCHES_SINGLE, patch_gather.LAUNCHES_STACK) == \
+        ((1, 0) if form == "single" else (0, 1))

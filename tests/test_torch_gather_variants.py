@@ -237,11 +237,83 @@ def test_cases_cover_what_they_claim():
 
 
 def test_tool_check_cases_on_cpu():
-    """The check phase 3c runs on the card, here on the plain versions."""
+    """The check phase 3c runs on the card, here on the plain versions: a
+    line a case, B2's two forms, G7 and G8 held to their own host windows,
+    then the specials line."""
     out = tool.check_cases("cpu", CASE_H, CASE_W, CASE_N)
-    assert [ok for _, ok in out] == [True] * len(tool.CASES)
+    assert [ok for _, ok in out] == [True] * (len(tool.CASES) + 1)
     assert all("gather_resident True" in line and "gather_resident_mma True" in line
-               for line, _ in out)
+               and "B2 single True, B2 stack True" in line and "dma_only True" in line
+               and "compact_only True" in line for line, _ in out[:-1])
+    line = out[-1][0]
+    assert line.startswith("case specials") and "B2 single True, B2 stack True" in line
+    assert "dma_only True, compact_only True" in line
+
+
+@pytest.mark.parametrize("name", tool.TRANSPORT)
+@pytest.mark.parametrize("case", tool.CASES)
+def test_transport_plain_on_cases(case, name):
+    """G7's and G8's plain versions on small versions of the tool's cases
+    (G8 on the case's whole blocks of 32), against windows cut with NumPy at
+    their origins: the band's raw corner (G7), or the block's first band at
+    each keypoint's own (cy % 8, cx % 128) (G8)."""
+    imgs, meta = tool.case_inputs(case, CASE_H, CASE_W, CASE_N)
+    if name == "compact_only":
+        meta = tool.whole_blocks(meta)
+        assert meta.shape[1] % gv.BLOCK_KP == 0 and meta.shape[1] >= gv.BLOCK_KP
+    padded, (ids, cx, cy) = imgs.numpy(), meta.numpy()
+    if name == "dma_only":
+        want = np_windows(padded, ids, cy - cy % 8, cx - cx % 128)
+    else:
+        first = np.repeat(meta.numpy()[:, ::gv.BLOCK_KP], gv.BLOCK_KP, axis=1)
+        want = np_windows(padded, first[0], first[2] - first[2] % 8 + cy % 8,
+                          first[1] - first[1] % 128 + cx % 128)
+    np.testing.assert_array_equal(getattr(gv, name)(imgs, meta).numpy(), want)
+    assert gv.LAUNCHES[name] == 0
+
+
+@pytest.mark.parametrize("name", tool.TRANSPORT)
+def test_needed_bytes_counts_each_image_float_once(name):
+    """The bytes G7's and G8's bounds count, against a count of the image
+    cells their windows read kept in a Python set, on the alignments case
+    (whose windows overlap): meta and the windows are added once each."""
+    imgs, meta = tool.case_inputs("alignments", CASE_H, CASE_W, CASE_N)
+    meta = tool.whole_blocks(meta)
+    ids, cx, cy = meta.numpy().astype(np.int64)
+    if name == "dma_only":
+        origins = zip(ids, cy - cy % 8, cx - cx % 128)
+    else:
+        b0, cx0, cy0 = (np.repeat(v[::gv.BLOCK_KP], gv.BLOCK_KP) for v in (ids, cx, cy))
+        origins = zip(b0, cy0 - cy0 % 8 + cy % 8, cx0 - cx0 % 128 + cx % 128)
+    cells = {(b, r + i, c + j) for b, r, c in origins for i in range(P) for j in range(P)}
+    assert len(cells) < meta.shape[1] * P * P   # the windows overlap
+    want = 4 * (len(cells) + meta.numel() + meta.shape[1] * P * P)
+    assert tool.needed_bytes(name, imgs, meta) == want
+
+
+@pytest.mark.parametrize("name", tool.TRANSPORT)
+def test_transport_library_call_equals_plain(name):
+    """The library yardstick of G7 and G8: one index call on the view of all
+    windows at the origins the tool prepares before the timed call, equal to
+    the plain version."""
+    imgs, meta = tool.case_inputs("alignments", CASE_H, CASE_W, CASE_N)
+    meta = tool.whole_blocks(meta)
+    ids, rows, cols = tool.library_origins(name, meta)
+    got = tool.window_view(imgs)[ids, rows, cols]
+    assert torch.equal(got, getattr(gv, name + "_reference")(imgs, meta))
+
+
+def test_special_case_covers_what_it_claims():
+    """The specials case holds NaN, -0.0, subnormals and both infinities in
+    every window, and G7's and G8's plain versions carry them bit for bit."""
+    imgs, meta = tool.special_case(CASE_H, CASE_W, CASE_N)
+    for name, m in (("dma_only", meta), ("compact_only", tool.whole_blocks(meta))):
+        got = getattr(gv, name)(imgs, m)
+        x = got.numpy()
+        assert np.isnan(x).any() and np.isposinf(x).any() and np.isneginf(x).any()
+        assert (np.signbit(x) & (x == 0)).any()
+        assert ((x != 0) & (np.abs(x) < np.finfo(np.float32).tiny)).any()
+        assert tool.same(got, torch.tensor(tool.host_windows(imgs, m, name)))
 
 
 # the sweep case, small: two padded images of 120 rows have 11 bases each, so
@@ -479,13 +551,13 @@ def test_batched_sweeps_refuse_widths_the_tensor_map_cannot_box(name, w, monkeyp
 
 
 @pytest.mark.parametrize("name", ["strip_sweep", "strip_sweep_db", "strip_sweep_batched",
-                                  "strip_sweep_flat", "whole_image"])
+                                  "strip_sweep_flat", "whole_image", "dma_only", "compact_only"])
 def test_sweep_wrappers_run_nothing_before_the_launch(name, monkeypatch):
-    """On the kernel's path a wrapper runs no PyTorch operation but the
-    output's allocation (``new_empty``, which is ``torch.empty`` with the
-    images' dtype and device), then one launch, then nothing: recorded with
-    the library replaced by a stand-in and every dispatched ATen operation
-    logged."""
+    """On the kernel's path a wrapper (the five sweeps, G7 and G8) runs no
+    PyTorch operation but the output's allocation (``new_empty``, which is
+    ``torch.empty`` with the images' dtype and device), then one launch, then
+    nothing: recorded with the library replaced by a stand-in and every
+    dispatched ATen operation logged."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     log = []
@@ -507,17 +579,21 @@ def test_sweep_wrappers_run_nothing_before_the_launch(name, monkeypatch):
     monkeypatch.setattr(gv.kernels, "require_cuda", lambda *tensors: None)
     monkeypatch.setitem(gv.LAUNCHES, name, 0)
     imgs = torch.empty((2, 384, 1408), device="meta")
+    meta = torch.empty((3, 2048), dtype=torch.int32, device="meta")
     args = {"whole_image": (imgs.reshape(-1, 1408),),
-            "strip_sweep_flat": (imgs.reshape(-1, 1408), 2)}.get(name, (imgs,))
+            "strip_sweep_flat": (imgs.reshape(-1, 1408), 2),
+            "dma_only": (imgs, meta), "compact_only": (imgs, meta)}.get(name, (imgs,))
     with Record():
         out = getattr(gv, name)(*args)
     entry_name = {"strip_sweep": "vloam_sweep_sync", "strip_sweep_db": "vloam_sweep_tma_ring",
                   "strip_sweep_batched": "vloam_sweep_batched",
                   "strip_sweep_flat": "vloam_sweep_batched_flat",
-                  "whole_image": "vloam_whole_image"}[name]
+                  "whole_image": "vloam_whole_image", "dma_only": "vloam_gather_dma_only",
+                  "compact_only": "vloam_gather_compact_only"}[name]
     assert log == ["aten.new_empty.default", ("launch", entry_name)]
     assert tuple(out.shape) == {"whole_image": (gv.REPS,), "strip_sweep_batched": (8,),
-                                "strip_sweep_flat": (8,)}.get(name, (88,))
+                                "strip_sweep_flat": (8,), "dma_only": (2048, P, P),
+                                "compact_only": (2048, P, P)}.get(name, (88,))
     assert gv.LAUNCHES[name] == 1
 
 
@@ -525,5 +601,26 @@ def test_kernels_per_call_counts_g2_and_g5():
     import inspect
 
     names = inspect.signature(tool.kernels_per_call).parameters["names"].default
-    assert {"strip_sweep", "strip_sweep_db", "strip_sweep_batched", "strip_sweep_flat",
-            "whole_image", "gather_resident", "gather_mma", "gather_resident_mma"} <= set(names)
+    assert {"patches_single", "patches_stack", "strip_sweep", "strip_sweep_db",
+            "strip_sweep_batched", "strip_sweep_flat", "whole_image", "dma_only", "compact_only",
+            "gather_resident", "gather_mma", "gather_resident_mma"} <= set(names)
+
+
+def test_register_copies_fit_the_source():
+    """G7 and B2's single-image and stacked forms are register copies with a
+    warp a window: G7's eight warps a block hold a whole 4 KB window in
+    flight (eight 16-byte loads a lane, every load before the first store),
+    and B2's eight warps a block load all 32 rows of their patch's column
+    before they store; B2's side is a compile-time 32, another side the
+    run-time instantiation."""
+    import re
+
+    src = tool.Path(gv.kernels.SRC_DIR)
+    variants = (src / "gather_variants.cu").read_text()
+    patches = (src / "gather_patches.cu").read_text()
+    assert re.search(r"constexpr int kDmaWarps = 8;", variants)
+    assert "constexpr int kDmaLoads = kP * kP / 4 / 32;" in variants and P * P // 4 // 32 == 8
+    assert "(n2 + kDmaWarps - 1) / kDmaWarps, kDmaWarps * 32" in variants
+    assert re.search(r"constexpr int kStackWarps = 8;", patches)
+    assert re.search(r"constexpr int kRowsInFlight = 32;", patches)
+    assert "p == 32 ? gather_stack_kernel<32> : gather_stack_kernel<0>" in patches

@@ -24,8 +24,24 @@
 // A second entry, vloam_gather_patches_stack, is the stacked form the TPU
 // kernel has: imgs (n_img, H, W), one image id per patch, (n_img * n, P, P)
 // out.  Both of its callers (one image; a blur stack of one octave) cut every
-// corner from every image, so the id of patch k is k / n and its corner is
-// k % n: no id array is built or read.  Same block, same copy.
+// corner from every image, so the id of patch j is j / n and its corner is
+// j % n: no id array is built or read.
+//
+// Its design: a warp a patch.  Lane l copies column l of the patch, and
+// loads all 32 of its rows into registers before it stores any, so a lane
+// has 32 loads in flight and a patch pays the copy's latency once, not once
+// a row; each row is one 128-byte warp access each way.  What bounds it is
+// bytes: at the ORB frontend's 1024 corners of a 376 x 1248 image, 1.9 MB
+// of image (from L2 after the first windows) and 4.2 MB of patches, 0.00181
+// ms of HBM.  The pair form's block of 256 threads a patch, which this form
+// shared before, reached 43-46 % of that bound here (NVIDIA H100 80GB HBM3,
+// 700 W; tools/gather_experiments, PERF.md); a TMA tiled load of
+// the box at (cx, cy) into a ring of shared memory with one bulk store a
+// patch (G7's design) stops on an illegal instruction: a tiled copy's
+// innermost start must lie on 16 bytes, and cx is any column.  The side is
+// a compile-time constant for P = 32 (every caller's; with P read at run
+// time the same copy ran 13 % slower); another P takes the run-time
+// instantiation, in 32-column chunks, 32 rows a batch.
 
 #include <assert.h>
 #include <cuda_runtime.h>
@@ -56,19 +72,36 @@ gather_patches_kernel(const float* __restrict__ img_a, int ha, int wa,
   }
 }
 
-__global__ void __launch_bounds__(kRowThreads * kRowsPerPass)
+constexpr int kStackWarps = 8;      // patches a block of the stacked form, a warp each
+constexpr int kRowsInFlight = 32;   // rows a lane loads before it stores
+
+// Patch j = img_id * n + k of the n_img * n is warp j's.  kSide: the patch
+// side when fixed at compile time, or 0 to take p.
+template <int kSide>
+__global__ void __launch_bounds__(kStackWarps * 32)
 gather_stack_kernel(const float* __restrict__ imgs, int h, int w,
-                    const int* __restrict__ corners, int n, int p, float* __restrict__ out) {
-  const int img_id = blockIdx.x / n;
-  const int k = blockIdx.x - img_id * n;
-  const float* img = imgs + static_cast<size_t>(img_id) * h * w;
-  float* dst = out + static_cast<size_t>(blockIdx.x) * p * p;
+                    const int* __restrict__ corners, int n, int total, int p_run,
+                    float* __restrict__ out) {
+  const int p = kSide > 0 ? kSide : p_run;
+  const int j = static_cast<int>(blockIdx.x) * kStackWarps + (threadIdx.x >> 5);
+  if (j >= total) return;
+  const int lane = threadIdx.x & 31;
+  const int img_id = j / n, k = j - img_id * n;
   const int cx = corners[2 * k];
   const int cy = corners[2 * k + 1];
   assert(cx >= 0 && cy >= 0 && cx + p <= w && cy + p <= h);
-  for (int r = threadIdx.y; r < p; r += kRowsPerPass) {
-    const float* src = img + static_cast<size_t>(cy + r) * w + cx;
-    for (int c = threadIdx.x; c < p; c += kRowThreads) dst[r * p + c] = src[c];
+  const float* src = imgs + (static_cast<size_t>(img_id) * h + cy) * w + cx;
+  float* dst = out + static_cast<size_t>(j) * p * p;
+  for (int c = lane; c - lane < p; c += 32) {
+    for (int r0 = 0; r0 < p; r0 += kRowsInFlight) {
+      float v[kRowsInFlight];
+#pragma unroll
+      for (int r = 0; r < kRowsInFlight; ++r)
+        if (c < p && r0 + r < p) v[r] = src[static_cast<size_t>(r0 + r) * w + c];
+#pragma unroll
+      for (int r = 0; r < kRowsInFlight; ++r)
+        if (c < p && r0 + r < p) dst[(r0 + r) * p + c] = v[r];
+    }
   }
 }
 
@@ -94,10 +127,11 @@ extern "C" int vloam_gather_patches(const float* img_a, int ha, int wa, const fl
 extern "C" int vloam_gather_patches_stack(const float* imgs, int n_img, int h, int w,
                                           const int* corners, int n, int p, float* out,
                                           void* stream) {
-  if (n_img * n > 0) {
-    const dim3 block(kRowThreads, kRowsPerPass);
-    gather_stack_kernel<<<n_img * n, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        imgs, h, w, corners, n, p, out);
+  const int total = n_img * n;
+  if (total > 0) {
+    auto kernel = p == 32 ? gather_stack_kernel<32> : gather_stack_kernel<0>;
+    kernel<<<(total + kStackWarps - 1) / kStackWarps, kStackWarps * 32, 0,
+             static_cast<cudaStream_t>(stream)>>>(imgs, h, w, corners, n, total, p, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

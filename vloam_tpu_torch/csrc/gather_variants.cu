@@ -24,9 +24,27 @@
 //                    cx % 32 == 0, else two (16-byte loads into shared
 //                    memory), then compaction from there.  One block a
 //                    keypoint.
-//   dma_only         transport only: the whole (40, 256) band is brought to
-//                    shared memory with cp.async, and its raw corner
-//                    band[:32, :32] is written; no shift by (dy, dx).
+//   dma_only         (G7) transport only: out[k] is the raw corner of the
+//                    keypoint's band, img[b, cy8:cy8+32, cx128:cx128+32], a
+//                    window whose rows start on 512 bytes; no shift by (dy,
+//                    dx).  The TPU kernel stages the whole (40, 256) band
+//                    because its unit of copy is an (8, 128) tile; the
+//                    function needs only the 4 KB it writes.  A warp a
+//                    window holds all of it in flight, eight 16-byte loads
+//                    a lane, then eight 16-byte stores.  Bound: bytes, the
+//                    image floats the windows read once (0.94 MB at the
+//                    tool's 2048 keypoints, since corners a band row apart
+//                    overlap) and the 8.4 MB written: 0.00279 ms of HBM.
+//                    Timed beside it as copies of this file (NVIDIA H100
+//                    80GB HBM3, 700 W; tools/gather_experiments, device ms
+//                    a call in a replayed graph; PERF.md): this copy
+//                    0.00414-0.00453; the copy engine alone (a tiled TMA
+//                    load of the 32 x 32 box from a 3-D tensor map into an
+//                    8-slot ring, one 4 KB bulk store a window, one issuing
+//                    thread a CTA) 0.00464-0.00494 at one CTA an SM, 0.00458
+//                    at two, 0.00462 at four; 32 bulk copies of a row a
+//                    window 0.02094; the staged band before it (41 KB a
+//                    window, 84 MB through L2) 0.0118-0.0121.
 //   compact_only     compaction only: one band per block of 32 keypoints
 //                    (that of the block's first keypoint), and every
 //                    keypoint's window is cut from it at its own (dy, dx).
@@ -130,16 +148,30 @@ gather_narrow_kernel(const float* __restrict__ imgs, int n_img, int h_pad, int w
   for (int i = threadIdx.x; i < kP * kP; i += kThreads) dst[i] = lines[i >> 5][dxl + (i & 31)];
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kDmaWarps = 8;                    // G7: windows a block, a warp each
+constexpr int kDmaLoads = kP * kP / 4 / 32;     // 16-byte loads a lane: the whole window
+
+// Lane l moves the window's 16-byte units l, l + 32, ...: unit i is column
+// 4 (i % 8) of row i / 8.  Every load is issued before the first store.
+__global__ void __launch_bounds__(kDmaWarps * 32)
 dma_only_kernel(const float* __restrict__ imgs, int n_img, int h_pad, int w,
                 const int* __restrict__ meta, int n2, float* __restrict__ out) {
-  __shared__ __align__(16) float band[kP8 * kBand];
-  const int k = blockIdx.x;
+  const int k = static_cast<int>(blockIdx.x) * kDmaWarps + (threadIdx.x >> 5);
+  if (k >= n2) return;
+  const int lane = threadIdx.x & 31;
   const Addr a = decode(meta, n2, k);
   check_addr(a, n_img, h_pad, w);
-  stage_band(band, imgs + static_cast<size_t>(a.b) * h_pad * w, w, a.cy8, a.cx128);
-  float* dst = out + static_cast<size_t>(k) * kP * kP;
-  for (int i = threadIdx.x; i < kP * kP; i += kThreads) dst[i] = band[(i >> 5) * kBand + (i & 31)];
+  const float4* src = reinterpret_cast<const float4*>(
+      imgs + (static_cast<size_t>(a.b) * h_pad + a.cy8) * w + a.cx128);
+  float4* dst = reinterpret_cast<float4*>(out + static_cast<size_t>(k) * kP * kP);
+  float4 v[kDmaLoads];
+#pragma unroll
+  for (int j = 0; j < kDmaLoads; ++j) {
+    const int i = j * 32 + lane;
+    v[j] = src[(i >> 3) * (w >> 2) + (i & 7)];
+  }
+#pragma unroll
+  for (int j = 0; j < kDmaLoads; ++j) dst[j * 32 + lane] = v[j];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -508,9 +540,11 @@ extern "C" int vloam_gather_narrow(const float* imgs, int n_img, int h_pad, int 
                      stream);
 }
 
+// G7: imgs on 16 bytes (its loads are 16 bytes wide).
 extern "C" int vloam_gather_dma_only(const float* imgs, int n_img, int h_pad, int w,
                                      const int* meta, int n2, float* out, void* stream) {
-  return launch_band(dma_only_kernel, n2, kThreads, imgs, n_img, h_pad, w, meta, n2, out, stream);
+  return launch_band(dma_only_kernel, (n2 + kDmaWarps - 1) / kDmaWarps, kDmaWarps * 32, imgs,
+                     n_img, h_pad, w, meta, n2, out, stream);
 }
 
 // n2 must be a multiple of 32.

@@ -139,18 +139,30 @@ gather_narrow_reference = gather_resident_reference = gather_reference
 gather_mma_reference = gather_resident_mma_reference = gather_reference
 
 
+def dma_only_origins(meta):
+    """(ids, rows, cols) of G7's windows: the raw corner (cy8, cx128) of each
+    keypoint's band."""
+    return meta[0], meta[2] - meta[2] % 8, meta[1] - meta[1] % 128
+
+
+def compact_only_origins(meta):
+    """(ids, rows, cols) of G8's windows: the band of the block's first
+    keypoint, at the k-th keypoint's own (dy, dx) = (cy % 8, cx % 128)."""
+    first = meta[:, ::BLOCK_KP].repeat_interleave(BLOCK_KP, dim=1)
+    return (first[0], first[2] - first[2] % 8 + meta[2] % 8,
+            first[1] - first[1] % 128 + meta[1] % 128)
+
+
 def dma_only_reference(imgs, meta):
     """out[k] = imgs[b, cy8:cy8+P, cx128:cx128+P]: the raw corner of the band."""
-    return _windows(imgs, meta[0], meta[2] - meta[2] % 8, meta[1] - meta[1] % 128)
+    return _windows(imgs, *dma_only_origins(meta))
 
 
 def compact_only_reference(imgs, meta):
     """Every block of 32 keypoints cuts from the band of its first keypoint:
     out[k] = band0[dy_k:dy_k+P, dx_k:dx_k+P] with the k-th keypoint's own
     (dy, dx) = (cy % 8, cx % 128)."""
-    first = meta[:, ::BLOCK_KP].repeat_interleave(BLOCK_KP, dim=1)
-    return _windows(imgs, first[0], first[2] - first[2] % 8 + meta[2] % 8,
-                    first[1] - first[1] % 128 + meta[1] % 128)
+    return _windows(imgs, *compact_only_origins(meta))
 
 
 # --- wrappers -------------------------------------------------------------------
@@ -272,7 +284,7 @@ def _check_meta(name, imgs, meta):
 def _gather(name, entry, imgs, meta):
     n_img, h_pad, w = imgs.shape
     n2 = meta.shape[1]
-    out = torch.empty((n2, P, P), dtype=torch.float32, device=imgs.device)
+    out = imgs.new_empty((n2, P, P))
     rc = kernels.entry(entry)(imgs.data_ptr(), n_img, h_pad, w, meta.data_ptr(), n2,
                               out.data_ptr(), kernels.stream_ptr(imgs.device))
     kernels.check(rc, name)
@@ -289,7 +301,9 @@ def gather_narrow(imgs, meta):
 
 
 def dma_only(imgs, meta):
-    """G7: the (40, 256) band of each keypoint staged, its raw corner written."""
+    """G7: each keypoint's raw corner, the 32 x 32 window at (cy8, cx128),
+    copied by a warp a window with the whole window in flight (eight
+    16-byte loads a lane, then eight stores)."""
     if imgs.device.type == "cpu":
         return dma_only_reference(imgs, meta)
     _check_meta("dma_only", imgs, meta)

@@ -9,6 +9,8 @@ strips of 40 rows) it times, by CUDA events, and checks against its plain
 PyTorch version (equality):
 
   A       the shipped two-image kernel ``gather_patches_pair``;
+  B2      its single-image form (one image, 1024 corners: the ORB
+          frontend's shape) and its stacked form (three images);
   G1-G5   strip and whole-image sweeps under different copy disciplines;
   G6-G11  other formulations of the gather (``ops/gather_variants``);
   C       the plain index gather.
@@ -22,16 +24,22 @@ the first find the 4.3 MB of images in the L2 cache, so this is an L2 rate,
 not an HBM rate), the plain version's ms, the ms of the one PyTorch call
 that computes the same function where there is one (``library``: ``amax``
 over an ``unfold`` or ``expand`` view for G1, G2 and G5, one index call on an
-``unfold`` view for the exact gathers), ``correct=``; then G5's and G3's
+``unfold`` view for the exact gathers, and for G7 and G8 at their windows'
+origins, computed before the timed call), ``correct=``; then what G7's and
+G8's functions must move on these inputs (``needed_bytes``: every image
+float some window reads, once, beside meta and the output), G5's and G3's
 (G4's) launches (blocks a cluster, clusters resident at once), the host
 microseconds of the steps of one G1-G5 call (G3's and G4's tensor map
-encoding among them) beside one ``amax`` call's, the four exact gathers and
-their plain version on inputs made to break them (``CASES``), the five
-sweeps on negative images with planted maxima (``sweep_case``) and with a
-NaN (``nan_case``), G5 with its maximum at each end of what each block reads
-(``whole_image_case``), the device kernels one call of G1-G5, G9, G10 and
-G11 runs (torch.profiler), and the card's name and power limit.  It needs a
-GPU and exits nonzero without one.
+encoding among them) beside one ``amax`` call's, the four exact gathers,
+B2's single-image and stacked forms, G7, G8 and the plain version on inputs
+made to break them (``CASES``; G8 on each case's whole blocks of 32), B2's
+two forms, G7 and G8 on images full of NaN, -0.0, subnormals and
+infinities (``special_case``), the five sweeps on negative
+images with planted maxima (``sweep_case``) and with a NaN (``nan_case``), G5
+with its maximum at each end of what each block reads
+(``whole_image_case``), the device kernels one call of G1-G5 and G7-G11 runs
+(torch.profiler), and the card's name and power limit.  It needs a GPU and
+exits nonzero without one.
 """
 
 from __future__ import annotations
@@ -46,14 +54,17 @@ import numpy as np
 import torch
 
 RUNS = 20
+PEAK_BW = 3.35e12   # bytes/s: the HBM3 bandwidth of one H100 SXM (NVIDIA's data sheet)
 LABELS = {
+    "patches_single": "B2 single-image form (1 img, ORB)",
+    "patches_stack": "B2 stacked form (3 images)",
     "strip_sweep": "G1 strip sweep, synchronous staging",
     "strip_sweep_db": "G2 strip sweep, two-slot TMA ring",
     "strip_sweep_batched": "G3 batched sweep, TMA from a 3-D map",
     "strip_sweep_flat": "G4 batched sweep, TMA from a 2-D map",
     "whole_image": "G5 whole images x10, cluster a repeat",
     "gather_narrow": "G6 gather from the needed 128-B lines",
-    "dma_only": "G7 transport only (band, raw corner)",
+    "dma_only": "G7 transport only (raw corner)",
     "compact_only": "G8 compaction only (1 band/32 kp)",
     "gather_resident": "G9 gather from a resident strip",
     "gather_mma": "G10 gather, tensor-core column shift",
@@ -132,7 +143,8 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
     computes the same function, itself held equal to the plain version, timed
     both ways; None where there is none), nbytes (what the function must
     move: inputs once, outputs once; for a sweep the padded images and its
-    few floats, though it reads 4.6x (G1-G4) or 10x (G5) those bytes),
+    few floats, though it reads 4.6x (G1-G4) or 10x (G5) those bytes; for G7
+    and G8 ``needed_bytes``),
     sweep_bytes (what a sweep reads, for its GB/s; None for the gathers),
     max_abs_err (kernel against plain), correct."""
     from vloam_tpu_torch.ops import gather_variants as gv
@@ -171,6 +183,21 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
     plain_pair = lambda: patch_gather.gather_patches_pair_reference(  # noqa: E731
         img_a, img_b, corners, corners, gv.P)
     add("gather_patches_pair", "A shipped two-image kernel", pair, plain_pair, pair_bytes)
+    # the single-image and stacked forms: the image(s) and the corners read once,
+    # the patches written once; the library call is one index call on the view
+    # of all windows
+    stack = torch.stack([img_a, img_b, 0.5 * (img_a + img_b)])
+    cx, cy = corners[:, 0], corners[:, 1]
+    for name, x, fn, plain, view in (
+            ("patches_single", img_a, patch_gather.gather_patches,
+             patch_gather.gather_patches_reference, lambda w: w[cy, cx]),
+            ("patches_stack", stack, patch_gather.gather_patches_stack,
+             patch_gather.gather_patches_stack_reference, lambda w: w[:, cy, cx])):
+        windows = window_view(x)
+        n_out = corners.shape[0] * (x.numel() // img_a.numel())
+        add(name, LABELS[name], lambda f=fn, x=x: f(x, corners), lambda f=plain, x=x: f(x, corners),
+            x.numel() * 4 + corners.numel() * 4 + n_out * gv.P * gv.P * 4,
+            library=lambda v=view, w=windows: v(w))
 
     for name, args in (("strip_sweep", (imgs,)), ("strip_sweep_db", (imgs,)),
                        ("strip_sweep_batched", (imgs,)), ("strip_sweep_flat", (img2d, n_img))):
@@ -188,19 +215,18 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
     # G6, G9, G10, G11 are the shipped gather's function, whose inputs are the
     # unpadded images (the padding serves the band arithmetic, it is not data the
     # function needs): they get the shipped kernel's bytes.  G7 and G8 are defined
-    # on the padded array: the padded images and meta read once, the patches written once.
-    padded_bytes = img_bytes + meta.numel() * 4 + meta.shape[1] * gv.P * gv.P * 4
+    # on the padded array and read only some of it: every image float one of their
+    # windows reads, once, with meta and the patches (needed_bytes).
     windows = window_view(imgs)
-    ids, cx, cy = meta
     for name in ("gather_narrow", "dma_only", "compact_only", "gather_resident", "gather_mma",
                  "gather_resident_mma"):
         kernel, plain = getattr(gv, name), getattr(gv, name + "_reference")
-        exact = name not in ("dma_only", "compact_only")
-        # the exact gather is one index call on the view of all windows; G7's and
-        # G8's window positions take index arithmetic first, so no one call
+        # one index call on the view of all windows, at the origins of each
+        # keypoint's window (for G7 and G8 computed here, outside the timed call)
+        origins = library_origins(name, meta)
         add(name, LABELS[name], lambda k=kernel: k(imgs, meta), lambda p=plain: p(imgs, meta),
-            pair_bytes if exact else padded_bytes,
-            library=(lambda: windows[ids, cy, cx]) if exact else None)
+            needed_bytes(name, imgs, meta) if name in TRANSPORT else pair_bytes,
+            library=lambda o=origins: windows[o])
 
     add("plain_gather", "C plain PyTorch index gather", plain_pair, plain_pair, pair_bytes)
     return rows
@@ -208,6 +234,74 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
 
 CASES = ("one_bucket", "alignments", "magnitudes", "sparse")
 EXACT = ("gather_narrow", "gather_resident", "gather_mma", "gather_resident_mma")
+TRANSPORT = ("dma_only", "compact_only")   # G7, G8: defined on the padded array
+
+
+def library_origins(name, meta):
+    """(ids, rows, cols) on meta's device, the origins of the windows
+    ``name`` writes: the keypoints' own corners for the exact gathers, G7's
+    and G8's from their plain versions' index arithmetic."""
+    from vloam_tpu_torch.ops import gather_variants as gv
+
+    if name in TRANSPORT:
+        return getattr(gv, name + "_origins")(meta)
+    return meta[0], meta[2], meta[1]
+
+
+def host_origins(name, meta) -> tuple:
+    """(ids, rows, cols) int64 NumPy arrays of the windows ``name`` writes,
+    from meta (3, N) on the host: the keypoint's own corner (the exact
+    gathers), the raw corner (cy - cy % 8, cx - cx % 128) of its band (G7),
+    or the band of its block's first keypoint at its own (cy % 8, cx % 128)
+    (G8, whose N is a multiple of 32)."""
+    from vloam_tpu_torch.ops.gather_variants import BLOCK_KP
+
+    ids, cx, cy = meta.cpu().numpy().astype(np.int64)
+    if name == "dma_only":
+        return ids, cy - cy % 8, cx - cx % 128
+    if name == "compact_only":
+        b0, cx0, cy0 = (np.repeat(v[::BLOCK_KP], BLOCK_KP) for v in (ids, cx, cy))
+        return b0, cy0 - cy0 % 8 + cy % 8, cx0 - cx0 % 128 + cx % 128
+    return ids, cy, cx
+
+
+def needed_bytes(name, imgs, meta) -> int:
+    """What G7's or G8's function must move on these inputs: every float of
+    the padded images that one of its windows reads, counted once, then meta
+    read once and the (N, 32, 32) windows written once.  Windows overlap (G7's
+    corners step by 8 rows and span 32; G8's windows of a block share a
+    band), so this is less than their count times 4 KB."""
+    from vloam_tpu_torch.ops.gather_variants import P
+
+    ids, rows, cols = host_origins(name, meta)
+    seen = np.zeros(tuple(imgs.shape), bool)
+    for b, r, c in zip(ids, rows, cols):
+        seen[b, r:r + P, c:c + P] = True
+    return 4 * (int(seen.sum()) + meta.numel() + ids.size * P * P)
+
+
+def needed_line(imgs, meta) -> str:
+    """What G7 and G8 (on meta's whole blocks of 32) must move on these
+    inputs, beside the padded images' size: the bytes their bounds count."""
+    from vloam_tpu_torch.ops.gather_variants import BLOCK_KP
+
+    whole = whole_blocks(meta)
+    ids, cx, cy = meta.cpu().numpy().astype(np.int64)
+    corners = len(set(zip(ids, cy - cy % 8, cx - cx % 128)))
+    firsts = whole.cpu().numpy().astype(np.int64)[:, ::BLOCK_KP]
+    bands = len(set(zip(firsts[0], firsts[2] - firsts[2] % 8, firsts[1] - firsts[1] % 128)))
+    parts = []
+    for name, m, what in (("G7", meta, f"{corners} distinct corners"),
+                          ("G8", whole, f"{bands} distinct bands of {whole.shape[1] // BLOCK_KP} "
+                                        "blocks")):
+        need = needed_bytes("dma_only" if name == "G7" else "compact_only", imgs, m)
+        read = need - m.numel() * 4 - m.shape[1] * 4096
+        parts.append(f"{name} {need / 1e6:.3f} MB ({what}; {read / 1e6:.3f} MB of image floats "
+                     f"read once, {m.numel() * 4} B of meta, {m.shape[1] * 4096 / 1e6:.3f} MB of "
+                     "windows)")
+    return (f"G7/G8 bytes needed: {parts[0]}; {parts[1]}; G7's distinct corners as whole 4 KB "
+            f"boxes {corners * 4096 / 1e6:.3f} MB; the padded images {imgs.numel() * 4 / 1e6:.3f} "
+            "MB")
 SPARSE_N = 37   # keypoints of the sparse case: a multiple of neither 32 nor 512
 
 
@@ -276,11 +370,13 @@ def case_inputs(case: str, H: int, W: int, n: int, device="cpu"):
     return imgs, meta
 
 
-def host_windows(imgs, meta) -> np.ndarray:
-    """The windows cut on the host with NumPy: the cases' expected output."""
+def host_windows(imgs, meta, name: str = "gather_narrow") -> np.ndarray:
+    """The windows ``name`` writes, cut on the host with NumPy: the cases'
+    expected output."""
     from vloam_tpu_torch.ops.gather_variants import P
 
-    padded, (ids, cx, cy) = imgs.cpu().numpy(), meta.cpu().numpy().astype(np.int64)
+    padded = imgs.cpu().numpy()
+    ids, cy, cx = host_origins(name, meta)
     off = np.arange(P)
     return padded[ids[:, None, None], cy[:, None, None] + off[None, :, None],
                   cx[:, None, None] + off[None, None, :]]
@@ -451,39 +547,105 @@ def sweep_checks(device="cuda") -> list[tuple]:
     return [check_sweep_case(device), check_nan_case(device), check_whole_image_case(device)]
 
 
+def whole_blocks(meta):
+    """meta's first keypoints, as many as fill whole blocks of 32 (G8's input)."""
+    from vloam_tpu_torch.ops.gather_variants import BLOCK_KP
+
+    return meta[:, :meta.shape[1] // BLOCK_KP * BLOCK_KP].contiguous()
+
+
+def special_case(H: int, W: int, n: int, device="cpu"):
+    """The magnitudes case with every fifth float of the images replaced, in
+    turn, by NaN, -0.0, the smallest subnormal, +inf and -inf: values a
+    transport must carry bit for bit."""
+    imgs, meta = case_inputs("magnitudes", H, W, n, device)
+    specials = torch.tensor([float("nan"), -0.0, 1e-45, float("inf"), -float("inf")],
+                            device=device)
+    flat = imgs.view(-1)
+    at = torch.arange(0, flat.numel(), 5, device=device)
+    flat[at] = specials[torch.arange(at.numel(), device=device) % specials.numel()]
+    return imgs, meta
+
+
+def b2_forms(imgs, meta, equal) -> dict:
+    """B2's single-image form on each image at its own keypoints' corners,
+    and its stacked form at every keypoint's corner in every image, each held
+    with ``equal`` to the windows cut on the host."""
+    from vloam_tpu_torch.ops import patch_gather
+
+    device = imgs.device
+    corners = meta[1:].T.contiguous()
+    single = True
+    for b in range(imgs.shape[0]):
+        mine = meta[0] == b
+        want = torch.tensor(host_windows(imgs, meta[:, mine]), device=device)
+        single &= equal(patch_gather.gather_patches(imgs[b], corners[mine].contiguous()), want)
+    want = torch.stack([torch.tensor(host_windows(imgs, torch.cat([torch.full_like(meta[:1], b),
+                                                                   meta[1:]])), device=device)
+                        for b in range(imgs.shape[0])])
+    return {"B2 single": bool(single),
+            "B2 stack": bool(equal(patch_gather.gather_patches_stack(imgs, corners), want))}
+
+
 def check_cases(device="cuda", H: int = 376, W: int = 1248, n: int = 2048) -> list[tuple]:
-    """The four exact gathers and their plain version on each of ``CASES``
-    (at the tool's image size by default), each held with ``torch.equal`` to
-    the windows cut on the host.  One (line, all equal) a case."""
+    """The four exact gathers, B2's single-image and stacked forms, G7, G8
+    and the exact gather's plain version on each of ``CASES`` (at the tool's
+    image size by default; G8 on the case's whole blocks of 32), each held
+    with ``torch.equal`` to the windows it must write, cut on the host; then
+    B2's two forms, G7 and G8 on ``special_case``, held with ``same`` (the
+    NaN masks, then every other value bit for bit).  One (line, all equal) a
+    case."""
     from vloam_tpu_torch.ops import gather_variants as gv
+
+    def host(imgs, meta, name):
+        return torch.tensor(host_windows(imgs, meta, name), device=device)
 
     out = []
     for case in CASES:
         imgs, meta = case_inputs(case, H, W, n, device)
-        want = torch.tensor(host_windows(imgs, meta), device=device)
+        want = host(imgs, meta, "gather_narrow")
         equal = {name: torch.equal(getattr(gv, name)(imgs, meta), want) for name in EXACT}
         equal["plain"] = torch.equal(gv.gather_reference(imgs, meta), want)
-        ok = all(equal.values())
-        out.append((f"case {case}: {meta.shape[1]} keypoints, equal to the windows cut on the "
-                    f"host: " + ", ".join(f"{k} {v}" for k, v in equal.items()), ok))
+        equal.update(b2_forms(imgs, meta, torch.equal))
+        equal["dma_only"] = torch.equal(gv.dma_only(imgs, meta), host(imgs, meta, "dma_only"))
+        whole = whole_blocks(meta)
+        equal["compact_only"] = torch.equal(gv.compact_only(imgs, whole),
+                                            host(imgs, whole, "compact_only"))
+        out.append((f"case {case}: {meta.shape[1]} keypoints ({whole.shape[1]} for G8), equal "
+                    f"to the windows cut on the host: "
+                    + ", ".join(f"{k} {v}" for k, v in equal.items()), all(equal.values())))
+    imgs, meta = special_case(H, W, n, device)
+    whole = whole_blocks(meta)
+    equal = b2_forms(imgs, meta, same)
+    equal["dma_only"] = same(gv.dma_only(imgs, meta), host(imgs, meta, "dma_only"))
+    equal["compact_only"] = same(gv.compact_only(imgs, whole), host(imgs, whole, "compact_only"))
+    out.append((f"case specials: {meta.shape[1]} keypoints on images of NaN, -0.0, 1e-45, +-inf "
+                "and magnitudes 1e-30..1e30, equal bit for bit to the windows cut on the host: "
+                + ", ".join(f"{k} {v}" for k, v in equal.items()), all(equal.values())))
     return out
 
 
-def kernels_per_call(names=("strip_sweep", "strip_sweep_db", "strip_sweep_batched",
-                            "strip_sweep_flat", "whole_image", "gather_resident", "gather_mma",
+def kernels_per_call(names=("patches_single", "patches_stack", "strip_sweep", "strip_sweep_db",
+                            "strip_sweep_batched", "strip_sweep_flat", "whole_image", "dma_only",
+                            "compact_only", "gather_resident", "gather_mma",
                             "gather_resident_mma")) -> list[tuple]:
     """The device kernels one wrapper call runs on the tool's inputs, by
-    torch.profiler: (line, names or None) a kernel.  Run it after every
-    timing: once the profiler has run, launches cost more on the host."""
+    torch.profiler: (line, names or None) a kernel.  B2's single-image and
+    stacked forms take the tool's first image and corners (``run``'s B2
+    rows).  Run it after every timing: once the profiler has run, launches
+    cost more on the host."""
     from vloam_tpu_torch.ops import gather_variants as gv
+    from vloam_tpu_torch.ops import patch_gather
     from vloam_tpu_torch.tools.gn_check import device_kernels
 
-    _, _, _, imgs, meta = make_inputs(torch.device("cuda"))
-    sweeps = sweep_calls(imgs)
+    img_a, img_b, corners, imgs, meta = make_inputs(torch.device("cuda"))
+    stack = torch.stack([img_a, img_b, 0.5 * (img_a + img_b)])
+    calls = {name: kernel for name, (kernel, _) in sweep_calls(imgs).items()}
+    calls["patches_single"] = lambda: patch_gather.gather_patches(img_a, corners)
+    calls["patches_stack"] = lambda: patch_gather.gather_patches_stack(stack, corners)
     out = []
     for name in names:
-        got = device_kernels(sweeps[name][0] if name in sweeps else
-                             lambda f=getattr(gv, name): f(imgs, meta))
+        got = device_kernels(calls.get(name) or (lambda f=getattr(gv, name): f(imgs, meta)))
         kern = ("not measured (the profiler showed no device event)" if got is None else
                 f"{len(got)} ({', '.join(sorted(set(g[:40] for g in got)))})")
         out.append((f"{name}: device kernels per wrapper call {kern}", got))
@@ -593,7 +755,9 @@ def report(rows, card: str) -> list[str]:
     for r in rows:
         line = f"{r['label']:<40}: {r['ms']:8.4f} ms"
         if r["device_ms"] is not None:
-            line += f", on the device {r['device_ms']:.4f} ms"
+            bound = r["nbytes"] / PEAK_BW * 1e3
+            line += (f", on the device {r['device_ms']:.5f} ms (bound {bound:.5f} ms, "
+                     f"{bound / r['device_ms']:.1%} of it)")
         if r["sweep_bytes"] is not None:
             line += (f" ({r['sweep_bytes'] / 1e6:.1f} MB, "
                      f"{r['sweep_bytes'] / 1e6 / r['device_ms']:.0f} GB/s, L2 after the first pass)")
@@ -601,7 +765,9 @@ def report(rows, card: str) -> list[str]:
             line += f"  plain {r['plain_ms']:.4f} ms"
         if r["library_ms"] is not None:
             line += (f"  library {r['library_ms']:.4f} ms, on the device "
-                     f"{r['library_device_ms']:.4f} ms")
+                     f"{r['library_device_ms']:.4f} ms"
+                     + (" (one index call at its windows' origins)" if r["name"] in TRANSPORT
+                        else ""))
         lines.append(line + f"  correct={r['correct']}")
     lines.append(card)
     return lines
@@ -621,7 +787,8 @@ def main(argv=None) -> int:
         kernels.SRC_DIR = Path(args.src).resolve()
     card = card_line()
     rows = run("cuda")
-    steps = [cluster_line()] + host_steps()
+    _, _, _, imgs, meta = make_inputs(torch.device("cuda"))
+    steps = [needed_line(imgs, meta), cluster_line()] + host_steps()
     cases = check_cases() + sweep_checks()
     counts = kernels_per_call()
     print("\n".join(report(rows, card)[:-1] + steps + [line for line, _ in cases + counts]
