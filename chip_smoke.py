@@ -27,9 +27,12 @@ Phases, each printed on its own lines:
    at level 0 of a tracked frame, and its single-image and stacked launch
    forms at the ORB frontend's shape and at a BRISK blur stack's; with the
    tolerances below, the median times of both (CUDA events, 20 runs), for
-   the k-NN and Gauss-Newton kernels and the gather's two forms (and their
-   index-call library) the device time per call when 20 calls are captured
-   in one CUDA graph and replayed, and each kernel's roofline bound.
+   the k-NN and Gauss-Newton kernels, the KLT gather at level 0 and the
+   gather's two other forms (and their index-call library) the device time
+   per call when 20 calls are captured in one CUDA graph and replayed, with
+   its share of the kernel's roofline bound, and each kernel's bound (a
+   gather's counts the image floats its windows read, once, and the share of
+   the images they cover at the KLT's level-0 call).
    Then (3b) the single-problem map association path, driven with the
    launch counts at 0: MO's two outer iterations with one k-NN launch per
    feature type, against the fused path from the same pose;
@@ -103,8 +106,8 @@ and the k-NN pair on seven seeds' stacked queries to seven unbatched calls
 row by row.
 
 Then the device kernels one Gauss-Newton wrapper call (the batched one
-included), and one call of B2's single-image and stacked forms, G1-G5 and
-G7-G11, runs (torch.profiler, after every timed phase: once it has run,
+included), and one call of B2's pair, single-image and stacked forms, G1-G5
+and G7-G11, runs (torch.profiler, after every timed phase: once it has run,
 launches cost more on the host),
 one JSON line of per-kernel results, the card's name and power limit, and
 last the line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -452,7 +455,7 @@ def check_kernels(cfg, ext, dframes, card):
     from vloam_tpu_torch.models.vloam import init_vloam_state
     from vloam_tpu_torch.ops import fused_knn, knn, patch_gather
     from vloam_tpu_torch.tools import knn_check
-    from vloam_tpu_torch.tools.gather_experiments import graph_ms
+    from vloam_tpu_torch.tools.gather_experiments import graph_ms, patch_bytes, window_floats
 
     last = KERNEL_FRAME
     print(f"== phase 3: kernels vs plain PyTorch versions, at the frame step's call shapes "
@@ -476,7 +479,9 @@ def check_kernels(cfg, ext, dframes, card):
         if graph:   # the wrapper's device work alone: no Python and no launch path
             device_ms = graph_ms(kernel)
             r["device_ms"] = r.get("device_ms", 0.0) + device_ms
-            device = f" ({device_ms:.4f} ms a call inside a replayed CUDA graph of 20 calls)"
+            bound = max(ops_ms, bytes_ms)
+            device = (f" ({device_ms:.5f} ms a call inside a replayed CUDA graph of 20 calls, "
+                      f"{bound / device_ms:.1%} of its bound)")
         print(f"  {name} {label}: kernel {ms:.4f} ms{device}, plain {plain_ms:.4f} ms "
               f"(median of {TIMING_RUNS}); bound {max(ops_ms, bytes_ms):.5f} ms "
               f"({ops / 1e6:.2f} MFLOP -> {ops_ms:.5f} ms, {nbytes / 1e6:.3f} MB -> "
@@ -624,11 +629,20 @@ def check_kernels(cfg, ext, dframes, card):
         print(f"  gather_patches {label} {tuple(img.shape)} -> 2x{tuple(got[0].shape)}: "
               f"bit-equal to the plain version")
         if label.endswith("level 0"):
-            # a pure copy: both images and the corners read once, both patch stacks written once
-            nbytes = 2 * img.numel() * 4 + 2 * got[0].shape[0] * 8 + 2 * got[0].numel() * 4
+            # a pure copy: the floats under each image's windows and the corners read
+            # once, both patch stacks written once
+            nbytes = patch_bytes(args[0].shape, args[2]) + patch_bytes(args[1].shape, args[3])
+            under = sum(window_floats((1, *im.shape), np.zeros(c.shape[0], np.int64),
+                                      *c.cpu().numpy().astype(np.int64).T[::-1])
+                        for im, c in ((args[0], args[2]), (args[1], args[3])))
+            print(f"  gather_patches {label}: its windows read {under} of the two images' "
+                  f"{2 * img.numel()} floats ({under / (2 * img.numel()):.1%}); bound bytes "
+                  f"{nbytes / 1e6:.3f} MB, the two whole images counted once "
+                  f"{(nbytes + 4 * (2 * img.numel() - under)) / 1e6:.3f} MB")
             timed("gather_patches", f"{label} {tuple(img.shape)} N={got[0].shape[0]}",
                   lambda: patch_gather.gather_patches_pair(*args),
-                  lambda: patch_gather.gather_patches_pair_reference(*args), 0, nbytes)
+                  lambda: patch_gather.gather_patches_pair_reference(*args), 0, nbytes,
+                  graph=True)
     check_gather_forms(cfg, dframes[last][0], timed, results)
     print("  library_ms is null for the k-NN and Gauss-Newton kernels and the two-image gather: "
           "no single PyTorch call computes a masked k-NN with dynamic counts, a fused "
@@ -981,7 +995,7 @@ def check_gather_forms(cfg, img, timed, results):
     at a BRISK blur stack's.  The library call of each is one index call on
     the view of all the image's windows."""
     from vloam_tpu_torch.ops import patch_gather
-    from vloam_tpu_torch.tools.gather_experiments import window_view
+    from vloam_tpu_torch.tools.gather_experiments import patch_bytes, window_view
 
     smooth, corner = orb_corners(img, cfg)
     n = corner.shape[0]
@@ -995,12 +1009,12 @@ def check_gather_forms(cfg, img, timed, results):
     assert torch.equal(windows[cy, cx], ref), "single image: library call differs from plain"
     print(f"  gather_patches {tuple(smooth.shape)} N={n} -> {tuple(got.shape)}: bit-equal to the "
           f"plain version")
-    # a pure copy: the image and the corners read once, the patches written once
+    # a pure copy: the floats under the windows and the corners read once, the
+    # patches written once
     timed("gather_patches_single", f"ORB frontend {tuple(smooth.shape)} N={n}",
           lambda: patch_gather.gather_patches(smooth, corner),
           lambda: patch_gather.gather_patches_reference(smooth, corner), 0,
-          smooth.numel() * 4 + corner.numel() * 4 + got.numel() * 4,
-          library=lambda: windows[cy, cx], graph=True)
+          patch_bytes(smooth.shape, corner), library=lambda: windows[cy, cx], graph=True)
 
     stack = blur_stack(img)
     got = patch_gather.gather_patches_stack(stack, corner)
@@ -1015,8 +1029,7 @@ def check_gather_forms(cfg, img, timed, results):
     timed("gather_patches_stack", f"BRISK blur stack {tuple(stack.shape)} N={n}",
           lambda: patch_gather.gather_patches_stack(stack, corner),
           lambda: patch_gather.gather_patches_stack_reference(stack, corner), 0,
-          stack.numel() * 4 + corner.numel() * 4 + got.numel() * 4,
-          library=lambda: stack_windows[:, cy, cx], graph=True)
+          patch_bytes(stack.shape[1:], corner, stack.shape[0]), library=lambda: stack_windows[:, cy, cx], graph=True)
 
 
 def check_stack_path(cfg, img, card):
@@ -1080,8 +1093,9 @@ def check_variants(results, card):
     print("  the sweeps' bounds (G1-G5) are the padded images read once over the HBM rate, while "
           "by their definition G1-G4 read every overlapping strip (4.6x the images) and G5 the "
           "images ten times, after the first pass from L2: none can reach half such a bound and "
-          "stay the sweep it is.  G7's and G8's bounds count the image floats their windows "
-          "read, once, with meta and the output (the bytes-needed line).  library: one amax "
+          "stay the sweep it is.  Every gather's bound (B2's forms, G6-G11) counts the image "
+          "floats its windows read, once, with the corners or meta and the output (the "
+          "bytes-needed line).  library: one amax "
           "over the strips' view (G1, G2, G5) or one index call on the view of all windows "
           "(G6, G9-G11; G7 and G8 at their windows' origins, computed before the timed call); "
           "none for G3, G4 (a maximum per strip, then a sum per eleven: two reductions)")
@@ -1109,15 +1123,15 @@ def check_stream_ptr(dev, card):
 
 
 def count_gather_kernels(card):
-    """The device kernels one call of B2's single-image and stacked forms,
-    G1-G5 and G7-G11 runs on the tool's inputs, by torch.profiler: one each
-    (no PyTorch operation before the launch).  A call whose profile shows no
-    device event in the retries of ``device_kernels`` fails the run: every
-    count must be measured.  Run after every timed phase, as
+    """The device kernels one call of B2's pair, single-image and stacked
+    forms, G1-G5 and G7-G11 runs on the tool's inputs, by torch.profiler: one
+    each (no PyTorch operation before the launch).  A call whose profile
+    shows no device event in the retries of ``device_kernels`` fails the run:
+    every count must be measured.  Run after every timed phase, as
     count_gn_kernels."""
     from vloam_tpu_torch.tools import gather_experiments as tool
 
-    print(f"== device kernels per B2 single / stack, G1-G5 / G7-G11 wrapper call "
+    print(f"== device kernels per B2 pair / single / stack, G1-G5 / G7-G11 wrapper call "
           f"(torch.profiler) [{card}]")
     for line, names in tool.kernels_per_call():
         print(f"  {line} [{card}]")

@@ -79,12 +79,13 @@ def test_out_of_range_corner_raises(bad, rng):
 
 
 
-@pytest.mark.parametrize("form", ["single", "stack"])
+@pytest.mark.parametrize("form", ["pair", "single", "stack"])
 def test_single_and_stack_run_nothing_before_the_launch(form, monkeypatch):
-    """On the kernel's path the single-image and stacked forms run no PyTorch
-    operation but views and the output's allocation, then one launch of the
-    stacked entry, then a view: recorded with the library replaced by a
-    stand-in and every dispatched ATen operation logged."""
+    """On the kernel's path the pair, single-image and stacked forms run no
+    PyTorch operation but views and the outputs' allocation, then one launch
+    of their entry (the pair's own, the stacked one for the other two), then
+    a view: recorded with the library replaced by a stand-in and every
+    dispatched ATen operation logged."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     log = []
@@ -94,27 +95,39 @@ def test_single_and_stack_run_nothing_before_the_launch(form, monkeypatch):
             log.append(str(func))
             return func(*args, **(kwargs or {}))
 
-    class Lib:
-        def vloam_gather_patches_stack(self, *args):
-            assert len(args) == len(patch_gather.kernels._SIGNATURES[
-                "vloam_gather_patches_stack"])
-            log.append("launch")
+    def entry(name):
+        def launch(self, *args):
+            assert len(args) == len(patch_gather.kernels._SIGNATURES[name])
+            log.append(name)
             return 0
+        return launch
+
+    class Lib:
+        vloam_gather_patches = entry("vloam_gather_patches")
+        vloam_gather_patches_stack = entry("vloam_gather_patches_stack")
 
     monkeypatch.setattr(patch_gather.kernels, "lib", Lib)
     monkeypatch.setattr(patch_gather.kernels, "stream_ptr", lambda device: 0)
     monkeypatch.setattr(patch_gather.kernels, "require_cuda", lambda *tensors: None)
-    monkeypatch.setattr(patch_gather, "LAUNCHES_SINGLE", 0)
-    monkeypatch.setattr(patch_gather, "LAUNCHES_STACK", 0)
+    for counter in ("LAUNCHES", "LAUNCHES_SINGLE", "LAUNCHES_STACK"):
+        monkeypatch.setattr(patch_gather, counter, 0)
     imgs = torch.empty((3, 376, 1248), device="meta")
     corners = torch.empty((N, 2), dtype=torch.int32, device="meta")
     with Record():
-        out = (patch_gather.gather_patches(imgs[0], corners) if form == "single"
-               else patch_gather.gather_patches_stack(imgs, corners))
-    allocs = [op for op in log if op != "launch" and not op.startswith(
+        if form == "pair":
+            out = patch_gather.gather_patches_pair(imgs[0], imgs[1], corners, corners, P)
+        elif form == "single":
+            out = patch_gather.gather_patches(imgs[0], corners)
+        else:
+            out = patch_gather.gather_patches_stack(imgs, corners)
+    launch = "vloam_gather_patches" if form == "pair" else "vloam_gather_patches_stack"
+    allocs = [op for op in log if op != launch and not op.startswith(
         ("aten.unsqueeze", "aten.select", "aten.alias", "aten.view"))]
-    assert allocs == ["aten.empty.memory_format"] and log.count("launch") == 1
-    assert log.index("launch") > log.index("aten.empty.memory_format")
-    assert tuple(out.shape) == ((N, P, P) if form == "single" else (3, N, P, P))
-    assert (patch_gather.LAUNCHES_SINGLE, patch_gather.LAUNCHES_STACK) == \
-        ((1, 0) if form == "single" else (0, 1))
+    assert allocs == ["aten.empty.memory_format"] + (
+        ["aten.empty_like.default"] if form == "pair" else [])
+    assert log.count(launch) == 1 and log.index(launch) > max(log.index(op) for op in allocs)
+    shapes = [tuple(o.shape) for o in (out if form == "pair" else (out,))]
+    assert shapes == {"pair": [(N, P, P)] * 2, "single": [(N, P, P)],
+                      "stack": [(3, N, P, P)]}[form]
+    assert (patch_gather.LAUNCHES, patch_gather.LAUNCHES_SINGLE, patch_gather.LAUNCHES_STACK) == \
+        {"pair": (1, 0, 0), "single": (0, 1, 0), "stack": (0, 0, 1)}[form]

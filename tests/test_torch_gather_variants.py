@@ -272,23 +272,41 @@ def test_transport_plain_on_cases(case, name):
     assert gv.LAUNCHES[name] == 0
 
 
-@pytest.mark.parametrize("name", tool.TRANSPORT)
+@pytest.mark.parametrize("name", tool.TRANSPORT + ("gather_narrow",))
 def test_needed_bytes_counts_each_image_float_once(name):
-    """The bytes G7's and G8's bounds count, against a count of the image
+    """The bytes the gathers' bounds count, against a count of the image
     cells their windows read kept in a Python set, on the alignments case
-    (whose windows overlap): meta and the windows are added once each."""
+    (whose windows overlap): meta and the windows are added once each.  G7
+    and G8 read at their bands' corners, the exact gathers at the keypoints'
+    own."""
     imgs, meta = tool.case_inputs("alignments", CASE_H, CASE_W, CASE_N)
     meta = tool.whole_blocks(meta)
     ids, cx, cy = meta.numpy().astype(np.int64)
     if name == "dma_only":
         origins = zip(ids, cy - cy % 8, cx - cx % 128)
-    else:
+    elif name == "compact_only":
         b0, cx0, cy0 = (np.repeat(v[::gv.BLOCK_KP], gv.BLOCK_KP) for v in (ids, cx, cy))
         origins = zip(b0, cy0 - cy0 % 8 + cy % 8, cx0 - cx0 % 128 + cx % 128)
+    else:
+        origins = zip(ids, cy, cx)
     cells = {(b, r + i, c + j) for b, r, c in origins for i in range(P) for j in range(P)}
     assert len(cells) < meta.shape[1] * P * P   # the windows overlap
     want = 4 * (len(cells) + meta.numel() + meta.shape[1] * P * P)
     assert tool.needed_bytes(name, imgs, meta) == want
+
+
+@pytest.mark.parametrize("n_img", [1, 3])
+def test_patch_bytes_counts_each_image_float_once(n_img):
+    """B2's bytes: the floats under the windows of one image, against a
+    Python set, times the images that share the corners, with the corners
+    once and the windows of every image.  Crossing windows count their shared
+    floats once, and floats no window covers not at all."""
+    corners = torch.tensor([[0, 0], [10, 4], [10, 4], [40, 30], [56, 0]], dtype=torch.int32)
+    shape = (70, 100)
+    cells = {(int(y) + i, int(x) + j) for x, y in corners for i in range(P) for j in range(P)}
+    assert len(cells) < corners.shape[0] * P * P and len(cells) < shape[0] * shape[1]
+    want = 4 * (n_img * len(cells) + corners.numel() + n_img * corners.shape[0] * P * P)
+    assert tool.patch_bytes(shape, corners, n_img) == want
 
 
 @pytest.mark.parametrize("name", tool.TRANSPORT)
@@ -601,26 +619,48 @@ def test_kernels_per_call_counts_g2_and_g5():
     import inspect
 
     names = inspect.signature(tool.kernels_per_call).parameters["names"].default
-    assert {"patches_single", "patches_stack", "strip_sweep", "strip_sweep_db",
+    assert {"patches_pair", "patches_single", "patches_stack", "strip_sweep", "strip_sweep_db",
             "strip_sweep_batched", "strip_sweep_flat", "whole_image", "dma_only", "compact_only",
             "gather_resident", "gather_mma", "gather_resident_mma"} <= set(names)
 
 
 def test_register_copies_fit_the_source():
-    """G7 and B2's single-image and stacked forms are register copies with a
-    warp a window: G7's eight warps a block hold a whole 4 KB window in
-    flight (eight 16-byte loads a lane, every load before the first store),
-    and B2's eight warps a block load all 32 rows of their patch's column
-    before they store; B2's side is a compile-time 32, another side the
-    run-time instantiation."""
+    """G7 and B2's three forms are register copies with a warp a window:
+    G7's eight warps a block hold a whole 4 KB window in flight (eight
+    16-byte loads a lane, every load before the first store), and B2's eight
+    warps a block (pair, single and stacked) each run the shared warp copy,
+    whose lanes load 32 rows of their column before they store; B2's side is
+    a compile-time 32, another side the run-time instantiation."""
     import re
 
     src = tool.Path(gv.kernels.SRC_DIR)
     variants = (src / "gather_variants.cu").read_text()
     patches = (src / "gather_patches.cu").read_text()
+    common = (src / "gather_common.cuh").read_text()
     assert re.search(r"constexpr int kDmaWarps = 8;", variants)
     assert "constexpr int kDmaLoads = kP * kP / 4 / 32;" in variants and P * P // 4 // 32 == 8
     assert "(n2 + kDmaWarps - 1) / kDmaWarps, kDmaWarps * 32" in variants
-    assert re.search(r"constexpr int kStackWarps = 8;", patches)
-    assert re.search(r"constexpr int kRowsInFlight = 32;", patches)
+    assert re.search(r"constexpr int kPatchWarps = 8;", patches)
+    assert re.search(r"constexpr int kRowsInFlight = 32;", common)
+    assert '#include "gather_common.cuh"' in patches
+    assert patches.count("gather::warp_copy_window<kSide>(") == 2
     assert "p == 32 ? gather_stack_kernel<32> : gather_stack_kernel<0>" in patches
+    assert "p == 32 ? gather_pair_kernel<32> : gather_pair_kernel<0>" in patches
+    assert "(2 * n + kPatchWarps - 1) / kPatchWarps, kPatchWarps * 32" in patches
+
+
+def test_compact_only_fits_the_source():
+    """G8 is a warp a window with no shared memory: eight warps a block, all
+    cutting from one band (32 keypoints a band), launched as n2 / 8 blocks, so
+    the tool's 2048 keypoints give a grid that covers the H100's 132 SMs."""
+    import re
+
+    variants = (tool.Path(gv.kernels.SRC_DIR) / "gather_variants.cu").read_text()
+    kernel = variants[variants.index("compact_only_kernel(const float*"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    warps = int(re.search(r"constexpr int kCompactWarps = (\d+);", variants).group(1))
+    assert warps == 8 and gv.BLOCK_KP % warps == 0
+    assert "n2 / kCompactWarps" in variants
+    assert "__shared__" not in kernel
+    meta = tool.make_inputs(torch.device("cpu"))[4]
+    assert meta.shape[1] == 2048 and meta.shape[1] // warps >= 132

@@ -1,9 +1,9 @@
-// Shared by the patch-gather measurement kernels (gather_sweeps.cu,
+// Shared by the patch-gather kernels (gather_patches.cu, gather_sweeps.cu,
 // gather_variants.cu): the fixed sizes of the experiment, asynchronous
 // 16-byte copies into shared memory (cp.async), bulk copies by the TMA onto
-// an mbarrier, a NaN-propagating block-wide maximum, and the decoding of a
+// an mbarrier, a NaN-propagating block-wide maximum, the decoding of a
 // keypoint's (image id, cx, cy) into the aligned band the TPU formulations
-// fetch.
+// fetch, and the register copy of one window by one warp.
 
 #pragma once
 
@@ -130,6 +130,30 @@ __device__ __forceinline__ Addr decode(const int* __restrict__ meta, int n2, int
   a.dx = a.cx & 127;
   a.cx128 = a.cx - a.dx;
   return a;
+}
+
+constexpr int kRowsInFlight = 32;   // rows a lane of warp_copy_window loads before it stores
+
+// One warp copies the (p, p) window at src, rows w floats apart, to dst, p x p
+// row-major.  Lane l takes columns l, l + 32, ... and loads kRowsInFlight rows
+// of its column into registers before it stores any, so a window pays the
+// copy's latency once, not once a row; each row is one 128-byte warp access
+// each way when p = 32.  kSide: p fixed at compile time, or 0 to take p_run.
+template <int kSide>
+__device__ __forceinline__ void warp_copy_window(const float* __restrict__ src, size_t w,
+                                                 float* __restrict__ dst, int p_run, int lane) {
+  const int p = kSide > 0 ? kSide : p_run;
+  for (int c = lane; c - lane < p; c += 32) {
+    for (int r0 = 0; r0 < p; r0 += kRowsInFlight) {
+      float v[kRowsInFlight];
+#pragma unroll
+      for (int r = 0; r < kRowsInFlight; ++r)
+        if (c < p && r0 + r < p) v[r] = src[(r0 + r) * w + c];
+#pragma unroll
+      for (int r = 0; r < kRowsInFlight; ++r)
+        if (c < p && r0 + r < p) dst[(r0 + r) * p + c] = v[r];
+    }
+  }
 }
 
 }  // namespace gather

@@ -45,9 +45,24 @@
 //                    at two, 0.00462 at four; 32 bulk copies of a row a
 //                    window 0.02094; the staged band before it (41 KB a
 //                    window, 84 MB through L2) 0.0118-0.0121.
-//   compact_only     compaction only: one band per block of 32 keypoints
-//                    (that of the block's first keypoint), and every
-//                    keypoint's window is cut from it at its own (dy, dx).
+//   compact_only     (G8) compaction only: one band per block of 32
+//                    keypoints (that of the block's first keypoint), and
+//                    every keypoint's window is cut from it at its own (dy,
+//                    dx).  The TPU kernel stages the (40, 256) band because
+//                    its unit of copy is an (8, 128) tile; here a warp a
+//                    window reads it straight from the band, which stays in
+//                    L2 for the 32 warps of its block (they read at most 39
+//                    rows x 159 columns of it): gather::warp_copy_window,
+//                    B2's copy (a lane a column, all 32 rows loaded before
+//                    any store), at the band's origin shifted by the
+//                    keypoint's own (dy, dx); 8 warps a block, 256 blocks at
+//                    the tool's 2048 keypoints.  Bound: bytes, the band
+//                    floats the windows read once and the 8.4 MB written.
+//                    It runs within a few per cent of G7, so on this card
+//                    compaction at an arbitrary shift costs nothing beyond
+//                    transport; the designs it was timed against (16-byte
+//                    stores shifted by a shuffle, a multicast cluster, the
+//                    staged band) and their times are in PERF.md.
 //   gather_resident  (G9, for gather_vmem_resident) the exact gather from a
 //                    strip staged once, in one launch with no sort.  The TPU
 //                    kernel holds both images in VMEM; 227 KB of shared
@@ -116,18 +131,6 @@ __device__ __forceinline__ void check_addr(const Addr& a, int n_img, int h_pad, 
          a.cx128 + kBand <= w);
 }
 
-// The (40, 256) band at (cy8, cx128) of one image into shared memory.
-__device__ __forceinline__ void stage_band(float* band, const float* __restrict__ img, int w,
-                                           int cy8, int cx128) {
-  for (int i = threadIdx.x; i < kP8 * (kBand / 4); i += blockDim.x) {
-    const int r = i / (kBand / 4), c4 = i % (kBand / 4);
-    cp_async16(band + r * kBand + 4 * c4, img + static_cast<size_t>(cy8 + r) * w + cx128 + 4 * c4);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kThreads)
 gather_narrow_kernel(const float* __restrict__ imgs, int n_img, int h_pad, int w,
                      const int* __restrict__ meta, int n2, float* __restrict__ out) {
@@ -174,20 +177,23 @@ dma_only_kernel(const float* __restrict__ imgs, int n_img, int h_pad, int w,
   for (int j = 0; j < kDmaLoads; ++j) dst[j * 32 + lane] = v[j];
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kCompactWarps = 8;   // G8: windows a block, a warp each, all of one band
+static_assert(kBlockKp % kCompactWarps == 0, "compact_only: a block's warps share one band");
+
+// Warp k writes window k from the band of keypoint k - k % 32 (the block's
+// first), at keypoint k's own (dy, dx): lane l copies column l, every row
+// loaded before the first store.  n2 is a multiple of 32, the grid exact.
+__global__ void __launch_bounds__(kCompactWarps * 32)
 compact_only_kernel(const float* __restrict__ imgs, int n_img, int h_pad, int w,
                     const int* __restrict__ meta, int n2, float* __restrict__ out) {
-  __shared__ __align__(16) float band[kP8 * kBand];
-  const int k0 = blockIdx.x * kBlockKp;
-  const Addr a0 = decode(meta, n2, k0);
+  const int k = static_cast<int>(blockIdx.x) * kCompactWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const Addr a0 = decode(meta, n2, k - k % kBlockKp);
   check_addr(a0, n_img, h_pad, w);
-  stage_band(band, imgs + static_cast<size_t>(a0.b) * h_pad * w, w, a0.cy8, a0.cx128);
-  for (int kk = 0; kk < kBlockKp; ++kk) {
-    const Addr a = decode(meta, n2, k0 + kk);
-    float* dst = out + static_cast<size_t>(k0 + kk) * kP * kP;
-    for (int i = threadIdx.x; i < kP * kP; i += kThreads)
-      dst[i] = band[(a.dy + (i >> 5)) * kBand + a.dx + (i & 31)];
-  }
+  const Addr a = decode(meta, n2, k);
+  const float* band = imgs + (static_cast<size_t>(a0.b) * h_pad + a0.cy8) * w + a0.cx128;
+  warp_copy_window<kP>(band + static_cast<size_t>(a.dy) * w + a.dx, w,
+                       out + static_cast<size_t>(k) * kP * kP, kP, lane);
 }
 
 // --- G9: one launch that stages a strip and finds its own keypoints ---------------
@@ -547,12 +553,12 @@ extern "C" int vloam_gather_dma_only(const float* imgs, int n_img, int h_pad, in
                      n_img, h_pad, w, meta, n2, out, stream);
 }
 
-// n2 must be a multiple of 32.
+// G8: n2 must be a multiple of 32.
 extern "C" int vloam_gather_compact_only(const float* imgs, int n_img, int h_pad, int w,
                                          const int* meta, int n2, float* out, void* stream) {
   if (n2 % gather::kBlockKp != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_band(compact_only_kernel, n2 / gather::kBlockKp, kThreads, imgs, n_img, h_pad, w,
-                     meta, n2, out, stream);
+  return launch_band(compact_only_kernel, n2 / kCompactWarps, kCompactWarps * 32, imgs, n_img,
+                     h_pad, w, meta, n2, out, stream);
 }
 
 // Once, when the library is loaded (kernels.lib() calls it): the

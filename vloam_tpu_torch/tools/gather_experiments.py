@@ -25,9 +25,10 @@ not an HBM rate), the plain version's ms, the ms of the one PyTorch call
 that computes the same function where there is one (``library``: ``amax``
 over an ``unfold`` or ``expand`` view for G1, G2 and G5, one index call on an
 ``unfold`` view for the exact gathers, and for G7 and G8 at their windows'
-origins, computed before the timed call), ``correct=``; then what G7's and
-G8's functions must move on these inputs (``needed_bytes``: every image
-float some window reads, once, beside meta and the output), G5's and G3's
+origins, computed before the timed call), ``correct=``; then what the
+gathers must move on these inputs (``needed_bytes``, ``patch_bytes``: every
+image float some window reads, once, beside the corners or meta and the
+output; the bound of every gather row counts these bytes), G5's and G3's
 (G4's) launches (blocks a cluster, clusters resident at once), the host
 microseconds of the steps of one G1-G5 call (G3's and G4's tensor map
 encoding among them) beside one ``amax`` call's, the four exact gathers,
@@ -37,8 +38,9 @@ two forms, G7 and G8 on images full of NaN, -0.0, subnormals and
 infinities (``special_case``), the five sweeps on negative
 images with planted maxima (``sweep_case``) and with a NaN (``nan_case``), G5
 with its maximum at each end of what each block reads
-(``whole_image_case``), the device kernels one call of G1-G5 and G7-G11 runs
-(torch.profiler), and the card's name and power limit.  It needs a GPU and
+(``whole_image_case``), the device kernels one call of B2's three forms,
+G1-G5 and G7-G11 runs (torch.profiler), and the card's name and power
+limit.  It needs a GPU and
 exits nonzero without one.
 """
 
@@ -143,8 +145,9 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
     computes the same function, itself held equal to the plain version, timed
     both ways; None where there is none), nbytes (what the function must
     move: inputs once, outputs once; for a sweep the padded images and its
-    few floats, though it reads 4.6x (G1-G4) or 10x (G5) those bytes; for G7
-    and G8 ``needed_bytes``),
+    few floats, though it reads 4.6x (G1-G4) or 10x (G5) those bytes; for a
+    gather the image floats its windows read, ``patch_bytes`` or
+    ``needed_bytes``),
     sweep_bytes (what a sweep reads, for its GB/s; None for the gathers),
     max_abs_err (kernel against plain), correct."""
     from vloam_tpu_torch.ops import gather_variants as gv
@@ -176,16 +179,16 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
                      "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
                      "correct": all(torch.equal(g, w) for g, w in zip(got, want))})
 
-    # both images and both corner sets read once, both patch stacks written once
-    pair_bytes = (img_a.numel() + img_b.numel()) * 4 + 2 * corners.numel() * 4 \
-        + 2 * corners.shape[0] * gv.P * gv.P * 4
+    # the floats under both images' windows and both corner sets read once, both
+    # patch stacks written once
+    pair_bytes = 2 * patch_bytes(img_a.shape, corners)
     pair = lambda: patch_gather.gather_patches_pair(img_a, img_b, corners, corners, gv.P)  # noqa: E731
     plain_pair = lambda: patch_gather.gather_patches_pair_reference(  # noqa: E731
         img_a, img_b, corners, corners, gv.P)
     add("gather_patches_pair", "A shipped two-image kernel", pair, plain_pair, pair_bytes)
-    # the single-image and stacked forms: the image(s) and the corners read once,
-    # the patches written once; the library call is one index call on the view
-    # of all windows
+    # the single-image and stacked forms: the floats under the windows and the
+    # corners read once, the patches written once; the library call is one index
+    # call on the view of all windows
     stack = torch.stack([img_a, img_b, 0.5 * (img_a + img_b)])
     cx, cy = corners[:, 0], corners[:, 1]
     for name, x, fn, plain, view in (
@@ -194,9 +197,8 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
             ("patches_stack", stack, patch_gather.gather_patches_stack,
              patch_gather.gather_patches_stack_reference, lambda w: w[:, cy, cx])):
         windows = window_view(x)
-        n_out = corners.shape[0] * (x.numel() // img_a.numel())
         add(name, LABELS[name], lambda f=fn, x=x: f(x, corners), lambda f=plain, x=x: f(x, corners),
-            x.numel() * 4 + corners.numel() * 4 + n_out * gv.P * gv.P * 4,
+            patch_bytes(img_a.shape, corners, x.numel() // img_a.numel()),
             library=lambda v=view, w=windows: v(w))
 
     for name, args in (("strip_sweep", (imgs,)), ("strip_sweep_db", (imgs,)),
@@ -212,11 +214,9 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
         lambda: gv.whole_image_reference(img2d), img_bytes + 4 * gv.REPS,
         gv.REPS * img_bytes, lambda: img2d.expand(gv.REPS, -1, -1).amax(dim=(1, 2)))
 
-    # G6, G9, G10, G11 are the shipped gather's function, whose inputs are the
-    # unpadded images (the padding serves the band arithmetic, it is not data the
-    # function needs): they get the shipped kernel's bytes.  G7 and G8 are defined
-    # on the padded array and read only some of it: every image float one of their
-    # windows reads, once, with meta and the patches (needed_bytes).
+    # every image float one of the windows reads, once, with meta and the patches
+    # (needed_bytes): G6 and G9-G11 at the keypoints' own corners (the padding
+    # serves the band arithmetic, no window reads it), G7 and G8 at theirs
     windows = window_view(imgs)
     for name in ("gather_narrow", "dma_only", "compact_only", "gather_resident", "gather_mma",
                  "gather_resident_mma"):
@@ -225,8 +225,7 @@ def run(device="cuda", runs: int = RUNS) -> list[dict]:
         # keypoint's window (for G7 and G8 computed here, outside the timed call)
         origins = library_origins(name, meta)
         add(name, LABELS[name], lambda k=kernel: k(imgs, meta), lambda p=plain: p(imgs, meta),
-            needed_bytes(name, imgs, meta) if name in TRANSPORT else pair_bytes,
-            library=lambda o=origins: windows[o])
+            needed_bytes(name, imgs, meta), library=lambda o=origins: windows[o])
 
     add("plain_gather", "C plain PyTorch index gather", plain_pair, plain_pair, pair_bytes)
     return rows
@@ -265,24 +264,47 @@ def host_origins(name, meta) -> tuple:
     return ids, cy, cx
 
 
+def window_floats(shape, ids, rows, cols) -> int:
+    """How many distinct floats of an (n_img, H, W) array the (32, 32)
+    windows at (ids, rows, cols) read: where windows overlap, or leave parts
+    of the images unread, this is not their count times 1024."""
+    from vloam_tpu_torch.ops.gather_variants import P
+
+    seen = np.zeros(tuple(shape), bool)
+    for b, r, c in zip(ids, rows, cols):
+        seen[b, r:r + P, c:c + P] = True
+    return int(seen.sum())
+
+
+def patch_bytes(shape, corners, n_img: int = 1) -> int:
+    """What B2 must move for n_img images of ``shape`` (H, W) that share the
+    (n, 2) int32 (x, y) corners: every image float under a window read once
+    (the same floats of every image), the corners read once, the (n_img, n,
+    32, 32) windows written once.  The pair form is two such single calls."""
+    from vloam_tpu_torch.ops.gather_variants import P
+
+    cx, cy = corners.cpu().numpy().astype(np.int64).T
+    floats = window_floats((1, *shape), np.zeros_like(cx), cy, cx)
+    return 4 * (n_img * floats + corners.numel() + n_img * cx.size * P * P)
+
+
 def needed_bytes(name, imgs, meta) -> int:
-    """What G7's or G8's function must move on these inputs: every float of
-    the padded images that one of its windows reads, counted once, then meta
-    read once and the (N, 32, 32) windows written once.  Windows overlap (G7's
-    corners step by 8 rows and span 32; G8's windows of a block share a
-    band), so this is less than their count times 4 KB."""
+    """What gather ``name`` must move on these inputs: every float of the
+    padded images that one of its windows reads (``host_origins``), counted
+    once, then meta read once and the (N, 32, 32) windows written once.
+    Windows overlap (G7's corners step by 8 rows and span 32; G8's windows of
+    a block share a band; random corners cross) and leave floats unread, so
+    this is less than their count times 4 KB, and less than the images."""
     from vloam_tpu_torch.ops.gather_variants import P
 
     ids, rows, cols = host_origins(name, meta)
-    seen = np.zeros(tuple(imgs.shape), bool)
-    for b, r, c in zip(ids, rows, cols):
-        seen[b, r:r + P, c:c + P] = True
-    return 4 * (int(seen.sum()) + meta.numel() + ids.size * P * P)
+    return 4 * (window_floats(imgs.shape, ids, rows, cols) + meta.numel() + ids.size * P * P)
 
 
 def needed_line(imgs, meta) -> str:
-    """What G7 and G8 (on meta's whole blocks of 32) must move on these
-    inputs, beside the padded images' size: the bytes their bounds count."""
+    """What the exact gathers, G7 and G8 (on meta's whole blocks of 32) must
+    move on these inputs, beside the padded images' size: the bytes their
+    bounds count."""
     from vloam_tpu_torch.ops.gather_variants import BLOCK_KP
 
     whole = whole_blocks(meta)
@@ -291,15 +313,17 @@ def needed_line(imgs, meta) -> str:
     firsts = whole.cpu().numpy().astype(np.int64)[:, ::BLOCK_KP]
     bands = len(set(zip(firsts[0], firsts[2] - firsts[2] % 8, firsts[1] - firsts[1] % 128)))
     parts = []
-    for name, m, what in (("G7", meta, f"{corners} distinct corners"),
+    for name, m, what in (("exact (G6, G9-G11)", meta, f"{meta.shape[1]} corners"),
+                          ("G7", meta, f"{corners} distinct corners"),
                           ("G8", whole, f"{bands} distinct bands of {whole.shape[1] // BLOCK_KP} "
                                         "blocks")):
-        need = needed_bytes("dma_only" if name == "G7" else "compact_only", imgs, m)
+        need = needed_bytes({"G7": "dma_only", "G8": "compact_only"}.get(name, "gather_narrow"),
+                            imgs, m)
         read = need - m.numel() * 4 - m.shape[1] * 4096
         parts.append(f"{name} {need / 1e6:.3f} MB ({what}; {read / 1e6:.3f} MB of image floats "
                      f"read once, {m.numel() * 4} B of meta, {m.shape[1] * 4096 / 1e6:.3f} MB of "
                      "windows)")
-    return (f"G7/G8 bytes needed: {parts[0]}; {parts[1]}; G7's distinct corners as whole 4 KB "
+    return (f"gather bytes needed: {'; '.join(parts)}; G7's distinct corners as whole 4 KB "
             f"boxes {corners * 4096 / 1e6:.3f} MB; the padded images {imgs.numel() * 4 / 1e6:.3f} "
             "MB")
 SPARSE_N = 37   # keypoints of the sparse case: a multiple of neither 32 nor 512
@@ -625,15 +649,16 @@ def check_cases(device="cuda", H: int = 376, W: int = 1248, n: int = 2048) -> li
     return out
 
 
-def kernels_per_call(names=("patches_single", "patches_stack", "strip_sweep", "strip_sweep_db",
-                            "strip_sweep_batched", "strip_sweep_flat", "whole_image", "dma_only",
-                            "compact_only", "gather_resident", "gather_mma",
-                            "gather_resident_mma")) -> list[tuple]:
+def kernels_per_call(names=("patches_pair", "patches_single", "patches_stack", "strip_sweep",
+                            "strip_sweep_db", "strip_sweep_batched", "strip_sweep_flat",
+                            "whole_image", "dma_only", "compact_only", "gather_resident",
+                            "gather_mma", "gather_resident_mma")) -> list[tuple]:
     """The device kernels one wrapper call runs on the tool's inputs, by
-    torch.profiler: (line, names or None) a kernel.  B2's single-image and
-    stacked forms take the tool's first image and corners (``run``'s B2
-    rows).  Run it after every timing: once the profiler has run, launches
-    cost more on the host."""
+    torch.profiler: (line, names or None) a kernel.  B2's pair form takes the
+    tool's two images and corners (``run``'s row A), its single-image and
+    stacked forms the first image and the corners (``run``'s B2 rows).  Run
+    it after every timing: once the profiler has run, launches cost more on
+    the host."""
     from vloam_tpu_torch.ops import gather_variants as gv
     from vloam_tpu_torch.ops import patch_gather
     from vloam_tpu_torch.tools.gn_check import device_kernels
@@ -641,6 +666,8 @@ def kernels_per_call(names=("patches_single", "patches_stack", "strip_sweep", "s
     img_a, img_b, corners, imgs, meta = make_inputs(torch.device("cuda"))
     stack = torch.stack([img_a, img_b, 0.5 * (img_a + img_b)])
     calls = {name: kernel for name, (kernel, _) in sweep_calls(imgs).items()}
+    calls["patches_pair"] = lambda: patch_gather.gather_patches_pair(img_a, img_b, corners,
+                                                                     corners, gv.P)
     calls["patches_single"] = lambda: patch_gather.gather_patches(img_a, corners)
     calls["patches_stack"] = lambda: patch_gather.gather_patches_stack(stack, corners)
     out = []
