@@ -97,7 +97,24 @@ Phases, each printed on its own lines:
    at full width made once, in (D) without and with
    ``exclude_unreliable``, MO final error within 3 % of the path in both,
    ATE, the KITTI segment error where the drive has segments, steady
-   ms/frame.
+   ms/frame;
+13. the frame step's options at full width, each part with its seconds:
+   (a) lidar undistortion: ``tests/test_distortion.py``'s two-frame
+   contract (a rigid sweep, then one motion-distorted sweep: the
+   interpolated LO solve within 8 cm of the true motion and under half the
+   rigid-sweep solve's error), then 12 frames of the full step in (D) with
+   ``distortion=True`` on phase 2's images and clouds swept over each
+   frame's motion (``simulate_scan_distorted``): launches, and printed, not
+   gated, drift, syncs and ms/frame (the same frames without distortion
+   beside);
+   (b) ``insert_dedup=False`` (the reference's re-voxelised map) beside the
+   dedup path on one LO run's feature clouds of phase 2's first 12 frames:
+   ``tests/test_mapping_policy_parity.py``'s three asserts, MO ms/frame,
+   syncs and launches of each; (c) VO with ``clahe``, ``keypoint_nms`` and
+   the FAST detector, 12 frames of the full step: VO drift, the fewest
+   tracks a frame, launches; (d) ``run_synthetic`` with ``debug_dir``,
+   ``debug_every=5`` over 10 frames: the PNG counts, each decoded to the
+   image's shape.
 
 Phase 3 also holds the batched B3 (``solve_pose_gn_lidar_batched``, seven
 seeds of frame 15's LO solve) to its plain version, its batch of one to the
@@ -173,6 +190,10 @@ GN_VO_OPS = 150        # per live match and iteration (csrc/gn_vo.cu)
 MIN_ORB_MATCHES = 100  # valid matches a frame in descriptor mode (tests/test_orb.py:56)
 N_SEEDS = 7            # loop closure's seeds: the chain estimate and 6 coarse peaks
 VALIDATION_FRAMES = 60  # the validation drive of phase 12 (tools/validate_drive runs 300)
+# phase 13: tests/test_distortion.py's two-frame contract, and the debug dumps' run
+DISTORTION_ON_TOL, DISTORTION_GAIN = 0.08, 0.5   # err_on < 0.08 m, err_on < 0.5 err_off
+DEBUG_FRAMES, DEBUG_EVERY = 10, 5
+MIN_TRACKS = 10          # vo_step solves only with >= 10 tracks (visual_odometry.py)
 # the ring course of tests/test_driver_loop_closure.py (phase 10)
 RING_FRAMES, RING_SPEED = 56, 1.1
 RING_KW = dict(keyframe_every=5, loop_radius=6.0, loop_min_travel=25.0, loop_drift_rate=0.02,
@@ -361,8 +382,11 @@ def main() -> int:
     del dframes
     launches["gn_lidar_batched"] = check_close(cfg, card)
     check_raw_input(cfg, ext, raw, poses, card, per_frame, step_syncs)
-    del frames, raw
+    short = frames[:N_SHORT]
+    del frames
     check_validation_drive(cfg, ext, card)
+    check_options(cfg, ext, raw, short, poses, card, per_frame)
+    del short, raw
     count_gn_kernels(gn_sites, card)
     count_gather_kernels(card)
 
@@ -2001,6 +2025,278 @@ def check_validation_drive(cfg, ext, card):
               f"{rec['steady_ms_per_frame']:.3f} ms/frame (frames {validate_drive.STEADY_FROM}.."
               f"{n - 1}, one fetch at the end); launches {got} [{card}]")
     print(f"  {VALIDATION_FRAMES} frames made in {gen_s:.1f} s (not timed)")
+
+
+def check_options(cfg, ext, raw, short, poses, card, step_per_frame):
+    """Phase 13: the frame step's options at full width (module docstring)."""
+    print(f"== phase 13: frame-step options, kitti_hdl64 [{card}]")
+    for name, part in (("a", lambda: check_distortion(cfg, ext, raw, poses, card, step_per_frame)),
+                       ("b", lambda: check_map_policy(cfg, ext, short, poses, card)),
+                       ("c", lambda: check_frontend_options(cfg, ext, short, poses, card,
+                                                            step_per_frame)),
+                       ("d", lambda: check_debug_dumps(cfg, ext, card))):
+        t0 = time.perf_counter()
+        part()
+        print(f"  ({name}) {time.perf_counter() - t0:.1f} s")
+
+
+def lo_errors(outs, poses):
+    """(worst LO f2f translation error (norm), final LO error, final MO error, path)."""
+    worst = max(float(np.linalg.norm(out.lo_delta[4:].cpu().numpy() - gt_delta(poses, i)[1]))
+                for i, out in enumerate(outs) if i)
+    gt_end = poses[len(outs) - 1][1]
+    lo = float(np.linalg.norm(outs[-1].world_lo[4:].cpu().numpy() - gt_end))
+    mo = float(np.linalg.norm(outs[-1].world_mo[4:].cpu().numpy() - gt_end))
+    return worst, lo, mo, SPEED * (len(outs) - 1)
+
+
+def check_distortion(cfg, ext, raw, poses, card, step_per_frame):
+    """13(a): the two-frame contract of tests/test_distortion.py, then the
+    full step in (D) with distortion on distorted sweeps."""
+    import dataclasses
+
+    from vloam_tpu_torch.data import stream, synthetic
+    from vloam_tpu_torch.models.lidar_odometry import init_lo_state, lo_step
+    from vloam_tpu_torch.models.vloam import frame_to_device, init_vloam_state, vloam_step
+    from vloam_tpu_torch.ops import fused_gn, fused_knn, patch_gather
+    from vloam_tpu_torch.ops.scan_registration import extract_features
+
+    dev = ext.P_rect0.device
+    on = cfg.replace(odom=dataclasses.replace(cfg.odom, distortion=True))
+    print(f"  (a) lidar undistortion (OdometryConfig.distortion) [{card}]")
+    scene = synthetic.default_scene()
+    (R1, t1), (R2, t2) = synthetic.straight_trajectory(3, speed=1.2, yaw_rate=0.02)[1:]
+    sweeps = (synthetic.simulate_scan(R1, t1, scene, n_azimuth=1800, noise=0.004, seed=1),
+              synthetic.simulate_scan_distorted(R1, t1, R2, t2, scene, n_azimuth=1800,
+                                                noise=0.004, seed=2))
+    t_true = R1.T @ (t2 - t1)
+    err = {}
+    for mode, c in (("on", on), ("off", cfg)):
+        state = init_lo_state(c, dev)
+        for pts in sweeps:
+            p, m = synthetic.pad_cloud(pts, c.scan.max_points)
+            feats = extract_features(torch.tensor(p, device=dev), torch.tensor(m, device=dev),
+                                     c.scan)
+            state, delta, _, _ = lo_step(state, feats, c)
+        err[mode] = float(np.linalg.norm(delta[4:].cpu().numpy() - t_true))
+    assert err["on"] < DISTORTION_ON_TOL and err["on"] < DISTORTION_GAIN * err["off"], \
+        f"distortion contract: error with {err['on']} m, without {err['off']} m"
+    print(f"    two-frame contract (speed 1.2 m, yaw 0.02 rad a sweep, n_azimuth 1800): LO f2f "
+          f"error with distortion {err['on']:.4f} m (bound {DISTORTION_ON_TOL}), without "
+          f"{err['off']:.4f} m (bound: with < {DISTORTION_GAIN} x without)")
+
+    # phase 2's images; each cloud swept over the motion since the previous frame
+    proj = stream.camera_matrices(ext)[1]
+    boxes = synthetic.default_scene()
+    box_cx = (boxes[:, 0] + boxes[:, 3]) / 2.0
+    t0 = time.perf_counter()
+    dframes = []
+    for i, (img, cloud) in enumerate(raw):
+        if i:
+            (Ra, ta), (Rb, tb) = poses[i - 1], poses[i]
+            near = boxes[np.abs(box_cx - tb[0]) < 100.0]
+            cloud = synthetic.simulate_scan_distorted(Ra, ta, Rb, tb, near, n_azimuth=1800,
+                                                      noise=0.005, seed=i)
+        dframes.append(frame_to_device(*stream.host_frame(cfg, proj, img, cloud), dev))
+    print(f"    {len(dframes)} distorted sweeps made in {time.perf_counter() - t0:.1f} s (not timed)")
+    counters = launch_counters()
+    runs = {}
+    for mode, c in (("on", on), ("off", cfg)):
+        fresh_device(dev)
+        fused_knn.LAUNCHES = fused_gn.LAUNCHES = fused_gn.LAUNCHES_VO = patch_gather.LAUNCHES = 0
+
+        def step(s, f, c=c):
+            img, g, m, bk, lf = f
+            return vloam_step(s, img, g, m, ext, c, pre_gridded=True, pre_buckets=bk,
+                              pre_lf_table=lf)
+
+        runs[mode] = drive(step, init_vloam_state(c, dev), dframes, counters)[1:]
+    outs, frame_ms, per_frame, syncs = runs["on"]
+    for i in range(len(dframes)):
+        got = {name: per_frame[name][i] for name in counters}
+        # LO solves with the generic GN (no B3): B3 runs in MO only
+        want = {"knn_pair": 4 if i else 0, "gn_lidar": 2 if i else 0, "gn_vo": 1,
+                "gather_patches": step_per_frame["gather_patches"][i]}
+        assert got == want, f"distortion frame {i}: launches {got}, want {want}"
+    for i, out in enumerate(outs):
+        for name, v in out._asdict().items():
+            assert bool(torch.isfinite(v.to(torch.float32)).all()), \
+                f"distortion frame {i}: non-finite {name}"
+    # Not gated: over many frames the sweep-end store feeds each frame's error
+    # into the next one's targets, and the LO deltas oscillate (the JAX
+    # lo_step gives the same deltas on the same features; the reference
+    # tests the two-frame contract only and keeps its TransformToEnd off)
+    for mode, what in (("on", "with distortion"), ("off", "the same frames without")):
+        worst, lo_e, mo_e, path = lo_errors(runs[mode][0], poses)
+        print(f"    {what} (not gated): LO f2f worst error {worst * 100:.2f} cm; final error LO "
+              f"{lo_e:.3f} m ({lo_e / path * 100:.2f} %), MO {mo_e:.3f} m "
+              f"({mo_e / path * 100:.2f} %) over {path:.1f} m")
+    print(f"    launches per frame: {', '.join(f'{k} {v[:3]}...' for k, v in per_frame.items())}")
+    print(f"    with distortion {ms_line(frame_ms, 5, card)}")
+    print(f"    without distortion {ms_line(runs['off'][1], 5, card)}")
+    print(f"    synchronising calls in frame {SYNC_FRAME}: with {syncs.count} "
+          f"({', '.join(syncs.sites)}), without {runs['off'][3].count}"
+          + (f"; other warnings: {syncs.other}" if syncs.other else ""))
+
+
+def check_map_policy(cfg, ext, short, poses, card):
+    """13(b): MO with insert_dedup=False (fresh window gather, every point
+    inserted, the window re-voxelised) beside the dedup path, on one LO
+    run's feature clouds; tests/test_mapping_policy_parity.py's asserts."""
+    import dataclasses
+
+    from vloam_tpu_torch.models.laser_mapping import init_map_state, mapping_step
+    from vloam_tpu_torch.models.lidar_odometry import init_lo_state, lo_step
+    from vloam_tpu_torch.models.vloam import frame_to_device
+    from vloam_tpu_torch.ops import fused_gn, fused_knn
+    from vloam_tpu_torch.ops.scan_registration import extract_features_from_grid
+
+    dev = ext.P_rect0.device
+    print(f"  (b) MappingConfig.insert_dedup=False beside the dedup path, {len(short)} frames [{card}]")
+    lo, feeds = init_lo_state(cfg, dev), []
+    for f in short:
+        _, g, m, _, lf = frame_to_device(*f, dev)
+        feats = extract_features_from_grid(g, m, m.sum(dim=1), cfg.scan, lf_table=lf)
+        lo, _, world_lo, _ = lo_step(lo, feats, cfg)
+        feeds.append((feats.less_sharp, feats.less_sharp_mask, feats.less_flat,
+                      feats.less_flat_mask, world_lo))
+    counters = {"knn_pair": lambda: fused_knn.LAUNCHES, "gn_lidar": lambda: fused_gn.LAUNCHES}
+    gt = np.stack([t for _, t in poses[:len(short)]])
+    res = {}
+    for dedup in (True, False):
+        mcfg = cfg.replace(mapping=dataclasses.replace(cfg.mapping, insert_dedup=dedup))
+        fresh_device(dev)
+        fused_knn.LAUNCHES = fused_gn.LAUNCHES = 0
+        state, outs, frame_ms, per_frame, syncs = drive(
+            lambda s, f, mcfg=mcfg: mapping_step(s, *f, mcfg), init_map_state(mcfg, dev), feeds,
+            counters)
+        for i in range(len(feeds)):
+            got = (per_frame["knn_pair"][i], per_frame["gn_lidar"][i])
+            assert got == ((2, 2) if i else (0, 0)), f"MO dedup={dedup} frame {i}: launches {got}"
+        err = np.linalg.norm(torch.stack(outs)[:, 4:].cpu().numpy() - gt, axis=1)
+        assert np.isfinite(err).all(), f"MO dedup={dedup}: non-finite pose"
+        res[dedup] = (err, int(state.corner_cnt.sum() + state.surf_cnt.sum()), frame_ms, syncs)
+        del state
+    (err_fast, n_fast, ms_fast, sy_fast), (err_ref, n_ref, ms_ref, sy_ref) = res[True], res[False]
+    path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    assert np.mean(err_fast) < 1.5 * np.mean(err_ref) + 0.01, \
+        f"dedup mean MO error {np.mean(err_fast)} vs reference-exact {np.mean(err_ref)}"
+    assert np.max(err_fast) / path < DRIFT_TOL, f"dedup MO errors {err_fast} over {path} m"
+    assert n_ref < n_fast < 2 * n_ref, f"map points dedup {n_fast}, reference-exact {n_ref}"
+    print(f"    MO error vs ground truth over {path:.1f} m: dedup mean {np.mean(err_fast):.4f} / max "
+          f"{np.max(err_fast):.4f} m, reference-exact mean {np.mean(err_ref):.4f} / max "
+          f"{np.max(err_ref):.4f} m (bounds: dedup mean < 1.5 x + 0.01, max < "
+          f"{DRIFT_TOL * 100:.0f} % of the path); map points dedup {n_fast}, reference-exact "
+          f"{n_ref} (bound ref < dedup < 2 ref); launches per frame 2 knn_pair + 2 gn_lidar on both")
+    print(f"    MO mapping_step alone, dedup {ms_line(ms_fast, 5, card)}")
+    print(f"    MO mapping_step alone, reference-exact {ms_line(ms_ref, 5, card)}")
+    print(f"    synchronising calls of mapping_step in frame {SYNC_FRAME}: dedup {sy_fast.count} "
+          f"({', '.join(sy_fast.sites)}), reference-exact {sy_ref.count} ({', '.join(sy_ref.sites)})")
+
+
+def check_frontend_options(cfg, ext, short, poses, card, step_per_frame):
+    """13(c): the full step in (D) with VO on CLAHE'd images, FAST corners and
+    the bucketed keypoint NMS."""
+    import dataclasses
+
+    from vloam_tpu_torch import geometry as geo
+    from vloam_tpu_torch.models.vloam import frame_to_device, init_vloam_state, vloam_step
+    from vloam_tpu_torch.ops import fused_gn, fused_knn, image_ops, patch_gather
+
+    dev = ext.P_rect0.device
+    ocfg = cfg.replace(visual=dataclasses.replace(cfg.visual, clahe=True, keypoint_nms=True,
+                                                  detector_type="fast"))
+    print(f"  (c) VO with clahe, keypoint_nms and detector_type='fast', full step (D), "
+          f"{len(short)} frames [{card}]")
+    dframes = [frame_to_device(*f, dev) for f in short]
+    fresh_device(dev)
+    counters = launch_counters()
+    fused_knn.LAUNCHES = fused_gn.LAUNCHES = fused_gn.LAUNCHES_VO = patch_gather.LAUNCHES = 0
+    tracks, kept = [], []
+    real_track = image_ops.lk_track_fb
+
+    def track(*a, **k):
+        curr, ok = real_track(*a, **k)
+        tracks.append(ok.sum())              # read after the drive: no sync inside it
+        return curr, ok
+
+    def step(s, f):
+        img, g, m, bk, lf = f
+        s, out = vloam_step(s, img, g, m, ext, ocfg, pre_gridded=True, pre_buckets=bk,
+                            pre_lf_table=lf)
+        kept.append(s.vo.prev_pts_mask.sum())
+        return s, out
+
+    with mock.patch.object(image_ops, "lk_track_fb", track):
+        _, outs, frame_ms, per_frame, syncs = drive(step, init_vloam_state(ocfg, dev), dframes,
+                                                    counters)
+    for i in range(len(dframes)):
+        got = {name: per_frame[name][i] for name in counters}
+        want = {"knn_pair": 4 if i else 0, "gn_lidar": 4 if i else 0, "gn_vo": 1,
+                "gather_patches": step_per_frame["gather_patches"][i]}
+        assert got == want, f"options frame {i}: launches {got}, want {want}"
+    for i, out in enumerate(outs):
+        for name, v in out._asdict().items():
+            assert bool(torch.isfinite(v.to(torch.float32)).all()), \
+                f"options frame {i}: non-finite {name}"
+    n_tracks = [int(t) for t in tracks]
+    n_kept = [int(k) for k in kept]
+    nbx = -(-cfg.visual.img_width // cfg.visual.nms_bucket_width)
+    nby = -(-cfg.visual.img_height // cfg.visual.nms_bucket_height)
+    per_bucket = max(cfg.visual.nms_max_total // (nbx * nby), 1)
+    assert min(n_tracks[1:]) >= MIN_TRACKS, f"tracks per frame {n_tracks}, want >= {MIN_TRACKS}"
+    assert 0 < min(n_kept) and max(n_kept) <= per_bucket * nbx * nby, f"keypoints kept {n_kept}"
+    worst = {"rot": 0.0, "cos": 1.0, "scale": 0.0}
+    for i in range(2, len(outs)):
+        R_rel, t_rel = gt_delta(poses, i)
+        d = outs[i].vo_delta.cpu()
+        est_t = d[4:].numpy().astype(np.float64)
+        worst = {"rot": max(worst["rot"], float(np.abs(geo.quat_to_matrix(d[:4]).numpy()
+                                                       - R_rel).max())),
+                 "cos": min(worst["cos"], float(est_t @ t_rel / (np.linalg.norm(est_t)
+                                                                 * np.linalg.norm(t_rel)))),
+                 "scale": max(worst["scale"], abs(np.linalg.norm(est_t) - np.linalg.norm(t_rel))
+                              / np.linalg.norm(t_rel))}
+    path = SPEED * (len(outs) - 1)
+    vo_err = float(np.linalg.norm(outs[-1].world_vo[4:].cpu().numpy() - poses[len(outs) - 1][1]))
+    print(f"    tracks per frame (KLT forward-backward ok): {n_tracks} (fewest from frame 1: "
+          f"{min(n_tracks[1:])}, bound >= {MIN_TRACKS}); keypoints kept by the NMS: {n_kept} "
+          f"(<= {per_bucket} a bucket x {nbx * nby})")
+    print(f"    VO (not gated): f2f from frame 2 worst rotation entry error {worst['rot']:.2e}, "
+          f"direction cos {worst['cos']:.6f}, scale error {worst['scale'] * 100:.2f} %; final "
+          f"error {vo_err:.3f} m ({vo_err / path * 100:.2f} %) over {path:.1f} m")
+    print(f"    launches per frame: {', '.join(f'{k} {v[:3]}...' for k, v in per_frame.items())}")
+    print(f"    {ms_line(frame_ms, 5, card)}")
+    print(f"    synchronising calls in frame {SYNC_FRAME}: {syncs.count} ({', '.join(syncs.sites)})"
+          + (f"; other warnings: {syncs.other}" if syncs.other else ""))
+
+
+def check_debug_dumps(cfg, ext, card):
+    """13(d): ``run_synthetic`` with the debug PNG dumps."""
+    from PIL import Image
+
+    from vloam_tpu_torch.runtime import driver as drv
+
+    print(f"  (d) run_synthetic with debug_dir, debug_every={DEBUG_EVERY}, {DEBUG_FRAMES} frames "
+          f"[{card}]")
+    vc = cfg.visual
+    with tempfile.TemporaryDirectory() as dbg:
+        res = drv.run_synthetic(cfg, n_frames=DEBUG_FRAMES, n_azimuth=1800, verbose=False,
+                                debug_dir=dbg, debug_every=DEBUG_EVERY, device=ext.P_rect0.device)
+        names = sorted(os.listdir(dbg))
+        dumped = range(0, DEBUG_FRAMES, DEBUG_EVERY)
+        want = sorted([f"keypoints_{i:06d}.png" for i in dumped]
+                      + [f"depth_{i:06d}.png" for i in dumped]
+                      + [f"flow_{i:06d}.png" for i in dumped if i])
+        assert names == want, f"debug files {names}, want {want}"
+        for name in names:
+            arr = np.asarray(Image.open(os.path.join(dbg, name)))
+            assert arr.shape == (vc.img_height, vc.img_width, 3) and arr.dtype == np.uint8, \
+                f"{name}: decoded to {arr.shape} {arr.dtype}"
+            assert bool((arr[..., 0] != arr[..., 1]).any()), f"{name}: nothing drawn"
+    print(f"    {len(names)} PNGs ({', '.join(names)}), each {vc.img_height}x{vc.img_width}x3 "
+          f"uint8; MO final error {res['final_err_mo_m']:.3f} m; steady_ms_per_frame "
+          f"{res['steady_ms_per_frame']:.3f} with the dumps on [{card}]")
 
 
 if __name__ == "__main__":

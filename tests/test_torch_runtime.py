@@ -403,11 +403,35 @@ def test_default_device_raises_without_a_gpu():
         tdriver.run_synthetic(tcfg, n_frames=1, verbose=False)
 
 
-@pytest.mark.parametrize("kw,roadmap", [(dict(debug_dir="dbg"), "A5")])
-def test_unported_driver_options_raise(kw, roadmap):
-    tcfg = configs(SC_TINY, MC_TINY)[1]
-    with pytest.raises(NotImplementedError, match=roadmap):
-        tdriver.VloamDriver(tcfg, tfg.kitti_default_extrinsics("cpu"), device="cpu", **kw)
+def test_driver_writes_debug_pngs(tmp_path):
+    """``dump_debug`` at every ``debug_every``-th frame, each PNG against the
+    JAX driver's ``dump_debug`` on the same image and grid: the keypoints
+    image equal, the flow and depth images equal on >= 99.9 % of the pixels
+    (a track or projection within rounding of a pixel edge may land one
+    pixel over)."""
+    from PIL import Image
+
+    jcfg, tcfg = configs(SC_TINY, MC_TINY)
+    frames, _ = make_frames(tcfg, 3, n_azimuth=120)
+    tdir, jdir = tmp_path / "port", tmp_path / "ref"
+    drv = tdriver.VloamDriver(tcfg, tfg.kitti_default_extrinsics("cpu"), debug_dir=str(tdir),
+                              debug_every=2, device="cpu")
+    jdrv = jdriver.VloamDriver(jcfg, jfg.kitti_default_extrinsics(), debug_dir=str(jdir),
+                               debug_every=2)
+    for i, (img, cloud) in enumerate(frames):
+        drv.process(img, cloud)
+        if i % 2 == 0:
+            grid, gmask, _ = jdriver.grid_cloud(cloud.astype(np.float32), jcfg.scan)
+            jdrv.count = i
+            jdrv.dump_debug(jdriver.pad_image(img, jcfg), grid, gmask)
+    names = {"keypoints_000000.png", "depth_000000.png", "keypoints_000002.png",
+             "flow_000002.png", "depth_000002.png"}
+    assert set(os.listdir(tdir)) == names == set(os.listdir(jdir))
+    for name in sorted(names):
+        got, want = (np.asarray(Image.open(d / name)) for d in (tdir, jdir))
+        assert got.shape == want.shape == (tcfg.visual.img_height, tcfg.visual.img_width, 3)
+        same = np.all(got == want, axis=-1).mean()
+        assert same == 1.0 if name.startswith("keypoints") else same >= 0.999, (name, same)
 
 
 # runs ``python -m vloam_tpu_torch.runtime`` with the 64-beam preset shrunk to
@@ -450,11 +474,55 @@ def test_cli_synthetic_json(tmp_path):
         assert ttraj.load_kitti_trajectory(str(tmp_path / name)).shape == (3, 3, 4)
 
 
-@pytest.mark.parametrize("flag,roadmap", [("--clahe", "A5")])
+@pytest.mark.parametrize("flag,roadmap", [("--descriptor-match --descriptor brisk", "A5")])
 def test_cli_unported_flag_exits_with_not_implemented(flag, roadmap):
-    res = run_cli("--device", "cpu", "--dataset", "synthetic", "--frames", "2", "--json", flag)
+    res = run_cli("--device", "cpu", "--dataset", "synthetic", "--frames", "2", "--json",
+                  *flag.split())
     assert res.returncode != 0
     assert "NotImplementedError" in res.stderr and roadmap in res.stderr, res.stderr[-2000:]
+
+
+# put before the CLI script's ``try``: wraps the ported options' functions
+# and records the ones the run reaches
+SPY_PRELUDE = textwrap.dedent("""
+    from vloam_tpu_torch.models import visual_odometry as _vo
+    from vloam_tpu_torch.ops import image_ops as _io, lidar_factors as _lf
+    _hits = set()
+    def _spy(mod, name):
+        real = getattr(mod, name)
+        def wrapped(*a, **k):
+            _hits.add(name)
+            return real(*a, **k)
+        setattr(mod, name, wrapped)
+    for _m, _n in ((_vo, "clahe"), (_io, "fast_response"), (_io, "bucket_nms"),
+                   (_lf, "pose_apply_interp")):
+        _spy(_m, _n)
+""")
+
+
+def test_cli_frame_step_options(tmp_path):
+    """``--distortion --clahe --detector fast --keypoint-nms`` and the debug
+    dumps through the CLI on the CPU: exit 0, three frames, each option's
+    ported function reached, the debug PNGs of frames 0 and 2 written."""
+    dbg = tmp_path / "dbg"
+    spy = CLI.replace("try:\n", SPY_PRELUDE + "try:\n", 1).replace(
+        "    bad = sorted(", "    print('reached:', sorted(_hits), file=sys.stderr)\n"
+        "    bad = sorted(", 1)
+    assert "_hits" in spy and "reached" in spy
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    res = subprocess.run(
+        [sys.executable, "-c", spy, "--device", "cpu", "--dataset", "synthetic", "--frames", "3",
+         "--json", "--distortion", "--clahe", "--detector", "fast", "--keypoint-nms",
+         "--debug-dir", str(dbg), "--debug-every", "2"],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["frames"] == 3 and np.isfinite(out["final_err_mo_m"])
+    assert ("reached: ['bucket_nms', 'clahe', 'fast_response', 'pose_apply_interp']"
+            in res.stderr), res.stderr[-2000:]
+    assert {"keypoints_000000.png", "keypoints_000002.png", "flow_000002.png"} <= set(
+        os.listdir(dbg))
 
 
 def test_cli_default_device_raises_without_a_gpu():

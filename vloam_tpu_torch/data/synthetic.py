@@ -1,8 +1,8 @@
 """Synthetic structured lidar world for tests and the chip smoke run.
 
 A NumPy copy of the raycast world of ``vloam_tpu/data/synthetic.py``
-(``default_scene``, ``simulate_scan``, ``straight_trajectory``,
-``pad_cloud``; and for the camera ``render_blob_image``, ``CAM_R_WORLD``,
+(``default_scene``, ``simulate_scan``, ``simulate_scan_distorted``,
+``straight_trajectory``, ``pad_cloud``; and for the camera ``render_blob_image``, ``CAM_R_WORLD``,
 ``raycast_camera``, ``kitti_like_intrinsics``): an HDL-64-like scanner in a
 Manhattan world of axis-aligned boxes + ground plane, raycast per (ring,
 azimuth) bin, clouds in the sensor frame with exact poses, and camera
@@ -91,6 +91,80 @@ def simulate_scan(
     hit = t < max_range
 
     pts = dirs_sensor[hit] * t[hit, None]
+    if noise > 0:
+        pts = pts + rng.normal(scale=noise, size=pts.shape)
+    return pts.astype(np.float32)
+
+
+def _so3_log(R: np.ndarray) -> np.ndarray:
+    cos = np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)
+    th = np.arccos(cos)
+    if th < 1e-8:
+        return np.zeros(3)
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return w * th / (2.0 * np.sin(th))
+
+
+def _so3_exp(w: np.ndarray) -> np.ndarray:
+    th = np.linalg.norm(w)
+    if th < 1e-10:
+        return np.eye(3) + np.array(
+            [[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]
+        )
+    k = w / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1.0 - np.cos(th)) * (K @ K)
+
+
+def simulate_scan_distorted(
+    pose_R_prev: np.ndarray,
+    pose_t_prev: np.ndarray,
+    pose_R: np.ndarray,   # sweep-END anchor pose (the frame's odometry pose)
+    pose_t: np.ndarray,
+    boxes: np.ndarray,
+    n_azimuth: int = 900,
+    max_range: float = 80.0,
+    ground_z: float = -1.73,
+    noise: float = 0.0,
+    seed: int = 0,
+) -> np.ndarray:
+    """One motion-distorted sweep: each azimuth column is raycast from the
+    sensor pose interpolated between the previous frame's anchor (sweep
+    fraction s = 0) and this frame's anchor (s = 1), and expressed in THAT
+    interpolated sensor frame.
+
+    This is exactly the acquisition model the reference's TransformToStart
+    undistortion inverts (laser_odometry.cpp:150-173): a point captured at
+    fraction s relates to the matching (previous) frame by the frame-to-frame
+    delta interpolated by s.
+    """
+    rng = np.random.default_rng(seed)
+    ring_angles = np.radians(hdl64_ring_angles())
+    az = np.linspace(np.pi, -np.pi, n_azimuth, endpoint=False)
+
+    w_delta = _so3_log(pose_R_prev.T @ pose_R)
+    out = []
+    for ci in range(n_azimuth):
+        s = ci / n_azimuth
+        R_s = pose_R_prev @ _so3_exp(s * w_delta)
+        t_s = (1.0 - s) * pose_t_prev + s * pose_t
+        el = ring_angles
+        ce = np.cos(el)
+        dirs_sensor = np.stack(
+            [ce * np.cos(az[ci]), ce * np.sin(az[ci]), np.sin(el)], axis=-1
+        )
+        dirs_world = dirs_sensor @ R_s.T
+        origins = np.broadcast_to(t_s, dirs_world.shape)
+        t_box = _ray_aabb(origins, dirs_world, boxes)
+        dz = dirs_world[:, 2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t_gnd = np.where(
+                dz < -1e-6, (ground_z - t_s[2]) / np.where(dz == 0, -1.0, dz), np.inf
+            )
+        t_hit = np.minimum(t_box, t_gnd)
+        hit = t_hit < max_range
+        out.append(dirs_sensor[hit] * t_hit[hit, None])
+    pts = np.concatenate(out, axis=0)
     if noise > 0:
         pts = pts + rng.normal(scale=noise, size=pts.shape)
     return pts.astype(np.float32)

@@ -89,6 +89,26 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
     return quat_normalize(q)
 
 
+def quat_slerp_identity(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Eigen's ``Identity().slerp(s, q)``: interpolate from the identity to q
+    on the short arc (q flipped when w < 0), with a lerp where sin(theta) <
+    1e-5.  Only selects separate the branches: at q = identity the arccos's
+    derivative is infinite, and forward-mode AD (``torch.func.jacfwd``)
+    takes the selected branch's tangent alone, so none of it reaches a
+    Jacobian."""
+    q = torch.where(q[..., 3:4] < 0, -q, q)
+    w = torch.clamp(q[..., 3], -1.0, 1.0)
+    theta = torch.arccos(w)
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-5
+    safe_sin = torch.where(small, 1.0, sin_theta)
+    w_id = torch.where(small, 1.0 - s, torch.sin((1.0 - s) * theta) / safe_sin)
+    w_q = torch.where(small, s, torch.sin(s * theta) / safe_sin)
+    # w_id * identity + w_q * q
+    out = torch.cat([w_q[..., None] * q[..., :3], (w_id + w_q * q[..., 3])[..., None]], dim=-1)
+    return quat_normalize(out)
+
+
 def quat_to_angle_axis(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion -> angle-axis vector, on the w >= 0 hemisphere.  Below
     |xyz| = 1e-8 the scale is the limit 2 (the pose graph differentiates this

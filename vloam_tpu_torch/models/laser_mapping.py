@@ -1,17 +1,27 @@
 """Scan-to-map lidar odometry (MO) — port of
-``vloam_tpu/models/laser_mapping.py`` on its insert-dedup path.
+``vloam_tpu/models/laser_mapping.py``.
 
 The map is a block-cyclic grid of fixed-capacity cubes (slot = world cube
 coordinate mod grid dims); each slot remembers which world cube it holds,
 so moving on lets new cubes lazily evict stale slots.  Per frame:
-voxel-downsample the input features, take the 5x5x3-cube submap from the
-compacted-submap cache (rebuilt only when the centre cube changes), run two
+voxel-downsample the input features, take the 5x5x3-cube submap, run two
 outer iterations of fused 5-NN + line/plane fits + fused GN, update the
-wmap_wodom correction, and insert the registered points whose nearest map
-point is farther than half a voxel.
+wmap_wodom correction, and insert the registered points.  Two map policies
+(``MappingConfig.insert_dedup``):
 
-The rebuilt submap cache is put into Morton order (on every device, as the
-reference does on its accelerator), the 5-NN search sees the feature stacks
+* True (the default): the submap comes from the compacted-submap cache
+  (rebuilt only when the centre cube changes), and only the registered
+  points whose nearest map point is farther than half a voxel are inserted;
+* False (the reference's own policy, laser_mapping.cpp:741-808): the submap
+  is gathered afresh every frame, every registered point is inserted, and
+  the window's cubes are re-voxelised after the insert (``_refilter_cubes``,
+  the sorting path of ``voxel_downsample``).  The cache is left as it was.
+
+A gathered submap is put into Morton order: the rebuilt cache on every
+device, as the reference does on its accelerator, and on the
+``insert_dedup=False`` path every frame's window too (the reference keeps
+that one in slot order; the search is exact, so the order changes only
+d2 ties and run time).  The 5-NN search sees the feature stacks
 through a Morton-order permutation, and it is clamped to the radius every
 consumer of its distances gates below: rows that lie together in space make
 the k-NN kernel's tile boxes small, and it skips the tile pairs farther
@@ -37,7 +47,7 @@ from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_lidar
 from vloam_tpu_torch.ops.fused_knn import knn_pair
 from vloam_tpu_torch.ops.knn import compact_rows, knn, morton_order, morton_sort
 from vloam_tpu_torch.ops.linalg3 import eigh3x3_sym, solve3x3_sym
-from vloam_tpu_torch.ops.voxel import div_exact, voxel_downsample
+from vloam_tpu_torch.ops.voxel import div_exact, voxel_downsample, voxel_downsample_batched
 
 INT32_MIN = -(2**31)
 STACK_MORTON_CELL = 2.0    # m, feature stacks (sensor frame)
@@ -277,20 +287,47 @@ def _append(buf, n, pts_w, m):
     return out[:cap], torch.clamp(n + mi.sum(), max=cap)
 
 
+def _refilter_cubes(cube_pts, corner_cnt, surf_cnt, slots, cfg: VloamConfig):
+    """Re-voxel-downsample the submap window's cubes (laser_mapping.cpp:793-808),
+    both feature types, each cube quantised from its own masked minimum.
+
+    ``cube_pts`` is updated IN PLACE.  Slot ids outside [0, n_cubes) are
+    gathered clipped and their results dropped (into the scrap slot).
+    Returns (corner_cnt, surf_cnt)."""
+    mc = cfg.mapping
+    nc = corner_cnt.shape[0]
+    capc, caps = mc.corner_cube_cap, mc.surf_cube_cap
+    slots_c = torch.clamp(slots, 0, nc - 1)
+    sub = cube_pts[slots_c]                                  # (75, capT, 4)
+
+    def part(off, cap, cnt, leaf):
+        m = torch.arange(cap, device=sub.device)[None, :] < cnt[slots_c][:, None]
+        pts, msk = voxel_downsample_batched(sub[:, off:off + cap], m, leaf, cap, max_grid=256,
+                                            presorted=False)
+        return pts, msk.sum(dim=1)
+
+    newc, ncnt = part(0, capc, corner_cnt, mc.line_resolution)
+    news, scnt = part(capc, caps, surf_cnt, mc.plane_resolution)
+    # the window's slots are distinct (it is smaller than the grid on every axis)
+    dest = torch.where((slots >= 0) & (slots < nc), slots, nc)
+    cube_pts.index_put_((dest,), torch.cat([newc, news], dim=1))   # in place
+
+    def put(cnt, new):
+        return torch.cat([cnt, cnt.new_zeros(1)]).index_put_((dest,), new)[:nc]
+
+    return put(corner_cnt, ncnt), put(surf_cnt, scnt)
+
+
 def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_mask,
                  pose_wodom, cfg: VloamConfig):
     """One mapping frame.  Returns (new_state, world pose after mapping).
     ``skip_frame`` is not read here: skipping frames is the caller's job
     (``models/vloam.vloam_step``).
 
-    Two host decisions per frame (each a device->host sync): whether the
-    submap cache must be rebuilt, and whether the map holds enough points
-    to register against."""
+    Host decisions per frame (each a device->host sync): whether the map
+    holds enough points to register against, and on the insert-dedup path
+    whether the submap cache must be rebuilt."""
     mc = cfg.mapping
-    if not mc.insert_dedup:
-        raise NotImplementedError(
-            "MappingConfig.insert_dedup=False (window re-voxelisation) is not ported yet "
-            "(ROADMAP A5)")
     dev = pose_wodom.device
 
     pose0 = geo.pose_compose(state.wmap_wodom, pose_wodom)
@@ -302,10 +339,11 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
     center = cube_coord_of(geo.pose_t(pose0)[None, :], mc.cube_size)[0]
     coords = _submap_coords(center, cfg)
 
-    if bool(torch.any(center != state.sub_center)):          # sync
-        (c_pts, cm), (s_pts, sm), _, _ = _gather_submap(state, coords, cfg)
-        # the tail appended frame by frame lies near the current pose and
-        # needs no re-sort
+    slots = None
+    if not mc.insert_dedup or bool(torch.any(center != state.sub_center)):   # sync (dedup)
+        (c_pts, cm), (s_pts, sm), slots, _ = _gather_submap(state, coords, cfg)
+        # the tail the dedup path appends frame by frame lies near the
+        # current pose and needs no re-sort
         org = (center.to(torch.float32) * mc.cube_size)[None, :]
         c_pts, cm = morton_sort(c_pts, cm, SUBMAP_MORTON_CELL, org)
         s_pts, sm = morton_sort(s_pts, sm, SUBMAP_MORTON_CELL, org)
@@ -352,32 +390,42 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
 
     wmap_wodom = geo.pose_compose(pose_w, geo.pose_inverse(pose_wodom))
 
-    # Insert the registered features whose nearest map point (from the last
-    # association pass) is farther than half a voxel.
+    # Insert the registered features: on the dedup path only those whose
+    # nearest map point (from the last association pass) is farther than
+    # half a voxel.
     corner_w = torch.cat([geo.pose_apply(pose_w, corner_stack[:, :3]), corner_stack[:, 3:]], 1)
     surf_w = torch.cat([geo.pose_apply(pose_w, surf_stack[:, :3]), surf_stack[:, 3:]], 1)
-    ins_c = cs_mask & (nn_c > (mc.insert_dedup_factor * mc.line_resolution) ** 2)
-    ins_s = ss_mask & (nn_s > (mc.insert_dedup_factor * mc.plane_resolution) ** 2)
+    ins_c, ins_s = cs_mask, ss_mask
+    if mc.insert_dedup:
+        ins_c = ins_c & (nn_c > (mc.insert_dedup_factor * mc.line_resolution) ** 2)
+        ins_s = ins_s & (nn_s > (mc.insert_dedup_factor * mc.plane_resolution) ** 2)
     c_cnt, s_cnt, cube_coord, acc_c, acc_s = _scatter_insert_pair(
         corner_w, ins_c, surf_w, ins_s,
         state.cube_pts, state.corner_cnt, state.surf_cnt, state.cube_coord, cfg,
     )
 
-    # Append this frame's accepted in-window points to the submap cache so
-    # it stays exactly the set a fresh gather would produce.
-    radii = torch.tensor([mc.submap_rx, mc.submap_rx, mc.submap_rz], device=dev)
+    if mc.insert_dedup:
+        # Append this frame's accepted in-window points to the submap cache
+        # so it stays exactly the set a fresh gather would produce.
+        radii = torch.tensor([mc.submap_rx, mc.submap_rx, mc.submap_rz], device=dev)
 
-    def in_window(pts_w):
-        cc = cube_coord_of(pts_w[:, :3], mc.cube_size)
-        return torch.all(torch.abs(cc - center[None, :]) <= radii[None, :], dim=-1)
+        def in_window(pts_w):
+            cc = cube_coord_of(pts_w[:, :3], mc.cube_size)
+            return torch.all(torch.abs(cc - center[None, :]) <= radii[None, :], dim=-1)
 
-    sub_c, sub_c_n = _append(c_pts, c_n, corner_w, acc_c & in_window(corner_w))
-    sub_s, sub_s_n = _append(s_pts, s_n, surf_w, acc_s & in_window(surf_w))
+        sub_c, sub_c_n = _append(c_pts, c_n, corner_w, acc_c & in_window(corner_w))
+        sub_s, sub_s_n = _append(s_pts, s_n, surf_w, acc_s & in_window(surf_w))
+        sub_center = center
+    else:
+        # the reference's policy: re-voxelise the window; the cache stays as it was
+        c_cnt, s_cnt = _refilter_cubes(state.cube_pts, c_cnt, s_cnt, slots, cfg)
+        sub_c, sub_c_n, sub_s, sub_s_n = state.sub_c, state.sub_c_n, state.sub_s, state.sub_s_n
+        sub_center = state.sub_center
 
     return MapState(
         cube_pts=state.cube_pts, corner_cnt=c_cnt, surf_cnt=s_cnt,
         cube_coord=cube_coord, pose_map=pose_w, wmap_wodom=wmap_wodom,
         initialized=True,
         sub_c=sub_c, sub_c_n=sub_c_n, sub_s=sub_s, sub_s_n=sub_s_n,
-        sub_center=center,
+        sub_center=sub_center,
     ), pose_w

@@ -6,6 +6,13 @@ association problems (sharp vs last less-sharp, flat vs last less-flat),
 the ring-constrained picks from the k-NN lists, and one fused GN launch.
 ``solve_f2f_batched`` registers one scan from several seeds at once (loop
 closure): still one k-NN launch and one GN launch an outer iteration.
+
+With ``OdometryConfig.distortion`` each feature point carries its sweep
+fraction s (the w channel is ring + 0.1 * rel_time): the queries and the
+residuals go through the pose interpolated to s, solved by the generic GN
+(``ops/gauss_newton.solve_pose_gn``, as the reference does: the fused
+kernel assumes s = 1), and the clouds stored for the next frame are moved
+to the sweep end (``lidar_factors.transform_to_end``).
 """
 
 from __future__ import annotations
@@ -20,8 +27,10 @@ from vloam_tpu_torch.config import VloamConfig
 from vloam_tpu_torch.ops import lidar_factors
 from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_lidar, solve_pose_gn_lidar_batched
 from vloam_tpu_torch.ops.fused_knn import knn_pair
+from vloam_tpu_torch.ops.gauss_newton import solve_pose_gn
 from vloam_tpu_torch.ops.knn import masked_argmin
 from vloam_tpu_torch.ops.scan_registration import ScanFeatures
+from vloam_tpu_torch.ops.voxel import div_exact
 
 
 class LoState(NamedTuple):
@@ -111,14 +120,20 @@ def solve_f2f(feats: ScanFeatures, cand_corner, cand_corner_mask, cand_surf,
     """Register ``feats`` against the candidate clouds.  Returns
     (pose cand_T_feats, counts (2,) edge/plane correspondences)."""
     oc = cfg.odom
-    if oc.distortion:
-        raise NotImplementedError("OdometryConfig.distortion is not ported yet (ROADMAP A5)")
     surf_n = _surf_count(cand_surf_mask)
+    if oc.distortion:
+        s_e = sweep_fraction(feats.sharp, cfg)
+        s_s = sweep_fraction(feats.flat, cfg)
 
     pose = pose0
     for _ in range(oc.outer_iters):
-        q_e = geo.pose_apply(pose, feats.sharp[:, :3])
-        q_s = geo.pose_apply(pose, feats.flat[:, :3])
+        if oc.distortion:
+            # TransformToStart with the per-point slerp fraction
+            q_e = lidar_factors.pose_apply_interp(pose, feats.sharp[:, :3], s_e)
+            q_s = lidar_factors.pose_apply_interp(pose, feats.flat[:, :3], s_s)
+        else:
+            q_e = geo.pose_apply(pose, feats.sharp[:, :3])
+            q_s = geo.pose_apply(pose, feats.flat[:, :3])
         (d2e, idxe), (d2s, idxs) = knn_pair(
             q_e, cand_corner[:, :3], cand_corner_mask, oc.assoc_k,
             q_s, cand_surf[:, :3], cand_surf_mask, oc.assoc_k_surf,
@@ -128,12 +143,27 @@ def solve_f2f(feats: ScanFeatures, cand_corner, cand_corner_mask, cand_surf,
             d2e, idxe, feats.sharp, feats.sharp_mask, cand_corner, cfg)
         p_s, n_s, d_s, v_s = _plane_correspondences(
             d2s, idxs, feats.flat, feats.flat_mask, cand_surf, cfg)
-        pose = solve_pose_gn_lidar(
-            pose, (p_e, a_e, b_e, v_e), (p_s, n_s, d_s, v_s),
-            oc.inner_iters, oc.huber_delta, oc.lm_lambda,
-        )
+        if oc.distortion:
+            def residuals(pp, p_e=p_e, a_e=a_e, b_e=b_e, v_e=v_e,
+                          p_s=p_s, n_s=n_s, d_s=d_s, v_s=v_s):
+                return ((lidar_factors.edge_residual_interp(pp, p_e, a_e, b_e, s_e), v_e),
+                        (lidar_factors.plane_residual_interp(pp, p_s, n_s, d_s, s_s), v_s))
+
+            pose = solve_pose_gn(residuals, pose, oc.inner_iters, oc.huber_delta, oc.lm_lambda)
+        else:
+            pose = solve_pose_gn_lidar(
+                pose, (p_e, a_e, b_e, v_e), (p_s, n_s, d_s, v_s),
+                oc.inner_iters, oc.huber_delta, oc.lm_lambda,
+            )
     counts = torch.stack([v_e.sum(), v_s.sum()]).to(torch.int32)
     return pose, counts
+
+
+def sweep_fraction(pts, cfg: VloamConfig):
+    """Per-point intra-sweep time fraction s = clip(frac(w) / scan_period,
+    0, 1) of a feature cloud's w channel (ring + 0.1 * rel_time)."""
+    w = pts[:, 3]
+    return torch.clamp(div_exact(w - torch.floor(w), cfg.scan.scan_period), 0.0, 1.0)
 
 
 def _surf_count(cand_surf_mask):
@@ -154,7 +184,9 @@ def solve_f2f_batched(feats: ScanFeatures, cand_corner, cand_corner_mask, cand_s
     alone), and one batched GN launch.  Returns (poses (S, 7), counts (S, 2))."""
     oc = cfg.odom
     if oc.distortion:
-        raise NotImplementedError("OdometryConfig.distortion is not ported yet (ROADMAP A5)")
+        raise NotImplementedError(
+            "solve_f2f_batched solves at s = 1 only (the fused GN kernel): its one caller, "
+            "loop closure's register_loop, turns OdometryConfig.distortion off")
     S, me, ms = poses0.shape[0], feats.sharp.shape[0], feats.flat.shape[0]
     surf_n = _surf_count(cand_surf_mask)
     pose = poses0
@@ -201,10 +233,18 @@ def lo_step(state: LoState, feats: ScanFeatures, cfg: VloamConfig, vo_prior=None
         pose_w = state.pose_wodom
         last_delta = state.last_delta
 
+    store_corner, store_surf = feats.less_sharp, feats.less_flat
+    if cfg.odom.distortion:
+        # the next frame's targets, rigid in their sweep-end anchor; the w
+        # channel keeps ring + time
+        store_corner, store_surf = (
+            torch.cat([lidar_factors.transform_to_end(delta, c[:, :3], sweep_fraction(c, cfg)),
+                       c[:, 3:]], dim=1)
+            for c in (store_corner, store_surf))
     new_state = LoState(
-        last_corner=feats.less_sharp,
+        last_corner=store_corner,
         last_corner_mask=feats.less_sharp_mask,
-        last_surf=feats.less_flat,
+        last_surf=store_surf,
         last_surf_mask=feats.less_flat_mask,
         pose_wodom=pose_w,
         last_delta=last_delta,

@@ -2,7 +2,9 @@
 ``vloam_tpu/models/visual_odometry.py``: the KLT branch and the ORB/BRIEF
 descriptor-match branch).
 
-Per frame: Shi-Tomasi corners on the current image; the previous frame's
+Per frame: optionally CLAHE on the current image (``VisualConfig.clahe``);
+Shi-Tomasi or FAST corners on it, optionally thinned per bucket
+(``keypoint_nms``); the previous frame's
 corners are either tracked into it by forward-backward pyramidal LK, seeded
 by the motion prior (``optical_flow_match=True``), or matched to the current
 corners by ORB/BRIEF descriptors and brute-force Hamming distance
@@ -19,10 +21,9 @@ select, so a VO frame reads nothing back from the device.
 Binary descriptors are int32 words holding the reference's uint32 bit
 patterns (see ``ops/orb``), in the state and in a checkpoint.
 
-Not ported (ROADMAP A5): CLAHE, the descriptor families other than ORB and
-BRIEF and the approximate (``flann``) matcher, which the reference reaches
-through its ``image_util`` facade, ``keypoint_nms`` and detectors other
-than Shi-Tomasi.
+Not ported (ROADMAP A5): the scale-space detectors and the descriptor
+families other than ORB and BRIEF, and the approximate (``flann``)
+matcher, which the reference reaches through its ``image_util`` facade.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 from vloam_tpu_torch import geometry as geo
 from vloam_tpu_torch.config import VloamConfig
 from vloam_tpu_torch.ops import image_ops, orb
+from vloam_tpu_torch.ops.clahe import clahe
 from vloam_tpu_torch.ops.depth_map import (DepthBuckets, bucket_shape, build_buckets,
                                            project_cloud, query_depth)
 from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_vo
@@ -136,23 +138,25 @@ def vo_step(state: VoState, img: torch.Tensor, K: torch.Tensor, cfg: VloamConfig
     (``depth_map.project_cloud`` + ``build_buckets``), which feed nothing
     else."""
     vc = cfg.visual
-    if vc.clahe:
-        raise NotImplementedError("VisualConfig.clahe is not ported yet (ROADMAP A5)")
-    if not vc.optical_flow_match and not (vc.descriptor_type in ("orb", "brief")
-                                          and vc.matcher_type == "bf"):
+    if vc.detector_type not in ("shitomasi", "fast") or (
+            not vc.optical_flow_match and not (vc.descriptor_type in ("orb", "brief")
+                                               and vc.matcher_type == "bf")):
         raise NotImplementedError(
-            f"descriptor_type={vc.descriptor_type!r} with matcher_type={vc.matcher_type!r} is "
-            "not ported yet (ROADMAP A5); descriptor mode runs ORB or BRIEF with the brute-force "
-            "matcher")
-    if vc.keypoint_nms:
-        raise NotImplementedError("VisualConfig.keypoint_nms is not ported yet (ROADMAP A5)")
+            f"detector_type={vc.detector_type!r}, descriptor_type={vc.descriptor_type!r} with "
+            f"matcher_type={vc.matcher_type!r} is not ported yet (ROADMAP A5): the port detects "
+            "Shi-Tomasi or FAST corners, and descriptor mode runs ORB or BRIEF with the "
+            "brute-force matcher")
     if pre_buckets is None and (cloud is None or cloud_mask is None or proj is None):
         raise ValueError("vo_step needs pre_buckets, or cloud, cloud_mask and proj to build them")
     dev = img.device
     count = state.count
 
     # --- frontend -----------------------------------------------------------
-    pts, pts_mask, _ = image_ops.detect_corners(img, vc)
+    if vc.clahe:
+        img = clahe(img, vc.clahe_clip)
+    pts, pts_mask, resp = image_ops.detect_corners(img, vc)
+    if vc.keypoint_nms:
+        pts_mask = image_ops.bucket_nms(pts, pts_mask, resp, vc)
 
     # --- depth association (prev frame's buckets at prev pixel) -------------
     depth0 = query_depth(state.prev_buckets, state.prev_pts, vc)

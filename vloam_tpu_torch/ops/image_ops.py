@@ -1,12 +1,18 @@
-"""2D feature frontend: Shi-Tomasi corners and pyramidal Lucas-Kanade
-(port of ``vloam_tpu/ops/image_ops.py``, the KLT path).
+"""2D feature frontend: corners and pyramidal Lucas-Kanade (port of
+``vloam_tpu/ops/image_ops.py``).
 
   * Shi-Tomasi response: the min eigenvalue of the 5x5 box-filtered
     structure tensor, from separable shift-and-add convolutions (the tap
     order of the reference is kept, so CPU sums round as there).
+  * FAST-9/16 response (``detector_type="fast"``): the summed threshold
+    excess over the radius-3 circle where 9 contiguous circle pixels are all
+    brighter or all darker, from 16 wrapping rolls of the image.
   * Corner selection: 7x7 local-max suppression, quality gate against the
-    image maximum, a border margin, then the global top ``max_corners``
-    into a fixed buffer (ties to the lower pixel index, as ``lax.top_k``).
+    image maximum (FAST: a positive response instead), a border margin,
+    then the global top ``max_corners`` into a fixed buffer (ties to the
+    lower pixel index, as ``lax.top_k``).
+  * ``bucket_nms``: at most max_total / n_buckets keypoints a 100x100 px
+    bucket, the strongest kept (keyPointsNMS, image_util.cpp:202-261).
   * Pyramidal LK with a forward-backward check: per feature and level one
     (P, P) patch is sliced from each image (``ops/patch_gather``, the CUDA
     kernel B2), and every window resample inside the GN loop is two batched
@@ -17,8 +23,6 @@ All images are (H, W) float32 in [0, 255]; keypoints are (N, 2) float32
 ``(x, y)`` pixel coordinates with a validity mask.  Control flow that was
 ``lax.cond``/``lax.scan`` is a Python branch on a host value or a Python
 loop with an on-device freeze mask: nothing here reads the device.
-
-Not ported (ROADMAP A5): the FAST detector and ``bucket_nms``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 
 from vloam_tpu_torch.config import VisualConfig
 from vloam_tpu_torch.ops.patch_gather import gather_patches_pair
+from vloam_tpu_torch.ops.voxel import div_exact
 
 NEG_BIG = float(np.float32(-3.4e38))
 
@@ -70,13 +75,45 @@ def shi_tomasi_response(img: torch.Tensor, block_size: int = 5) -> torch.Tensor:
     return 0.5 * (tr - det_part)
 
 
+# radius-3 Bresenham circle offsets (dy, dx), OpenCV's order
+FAST_CIRCLE = ((-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2), (3, 1),
+               (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1))
+
+
+def fast_response(img: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
+    """FAST-9/16 corner response (the reference's DetectorType::FAST,
+    image_util.cpp:83-87): a pixel is a corner when >= 9 contiguous pixels
+    of the radius-3 circle are all brighter than centre + t or all darker
+    than centre - t; its response is the summed threshold excess over the
+    circle, in circle order.  The circle wraps at the image edges, as the
+    reference's ``jnp.roll`` does: a wrapped border response takes part in
+    the local-max suppression of interior peaks."""
+    circ = [torch.roll(img, (-dy, -dx), dims=(0, 1)) for dy, dx in FAST_CIRCLE]
+
+    def arc9(flags):
+        # any circular run of 9: AND of the 9 shifts along the circle axis
+        run = flags
+        for k in range(1, 9):
+            run = run & torch.roll(flags, -k, dims=0)
+        return run.any(dim=0)
+
+    is_corner = (arc9(torch.stack([c > img + threshold for c in circ]))
+                 | arc9(torch.stack([c < img - threshold for c in circ])))
+    excess = sum(torch.clamp(torch.abs(c - img) - threshold, min=0.0) for c in circ)
+    return torch.where(is_corner, excess, 0.0)
+
+
 def detect_corners(img: torch.Tensor, cfg: VisualConfig):
-    """Shi-Tomasi corners -> (pts (max_corners, 2) xy, mask, response)."""
-    if cfg.detector_type != "shitomasi":
-        raise NotImplementedError(
-            f"detector_type={cfg.detector_type!r} is not ported yet (ROADMAP A5); "
-            "the port detects Shi-Tomasi corners only")
-    resp = shi_tomasi_response(img, cfg.block_size)
+    """Corners -> (pts (max_corners, 2) xy, mask, response).
+    ``cfg.detector_type``: "shitomasi" (the reference's goodFeaturesToTrack)
+    or "fast" (FAST-9/16, thresholded absolutely: no quality gate, peaks
+    need a positive response)."""
+    if cfg.detector_type == "shitomasi":
+        resp = shi_tomasi_response(img, cfg.block_size)
+    elif cfg.detector_type == "fast":
+        resp = fast_response(img, cfg.fast_threshold)
+    else:
+        raise ValueError(f"unsupported detector_type={cfg.detector_type!r} (shitomasi|fast)")
     H, W = resp.shape
     dev = resp.device
 
@@ -84,7 +121,10 @@ def detect_corners(img: torch.Tensor, cfg: VisualConfig):
     # reference's separable shift-max with -inf padding is this max pool)
     r = max(int(cfg.min_distance // 2), 1)
     local_max = F.max_pool2d(resp[None, None], 2 * r + 1, stride=1, padding=r)[0, 0]
-    is_peak = (resp >= local_max) & (resp >= cfg.quality_level * torch.amax(resp))
+    if cfg.detector_type == "shitomasi":
+        is_peak = (resp >= local_max) & (resp >= cfg.quality_level * torch.amax(resp))
+    else:
+        is_peak = (resp >= local_max) & (resp > 0.0)
 
     # safety border (gradients and windows are invalid at the edges)
     b = cfg.block_size
@@ -101,7 +141,28 @@ def detect_corners(img: torch.Tensor, cfg: VisualConfig):
 
 
 def bucket_nms(pts, mask, resp, cfg: VisualConfig):
-    raise NotImplementedError("bucket_nms (VisualConfig.keypoint_nms) is not ported yet (ROADMAP A5)")
+    """The reference's keyPointsNMS (image_util.cpp:202-261): keep the
+    strongest max_total // n_buckets keypoints (at least 1) of each
+    nms_bucket_width x nms_bucket_height bucket.  Returns the updated mask."""
+    n = pts.shape[0]
+    dev = pts.device
+    bx = div_exact(pts[:, 0], cfg.nms_bucket_width).to(torch.int64)   # toward zero
+    by = div_exact(pts[:, 1], cfg.nms_bucket_height).to(torch.int64)
+    nbx = -(-cfg.img_width // cfg.nms_bucket_width)
+    nby = -(-cfg.img_height // cfg.nms_bucket_height)
+    cap = max(cfg.nms_max_total // (nbx * nby), 1)
+    bucket = torch.where(mask, bx * nby + by, nbx * nby)
+    # rank within a bucket by response: stable sorts by -resp, then bucket
+    order = torch.sort(-torch.where(mask, resp, -torch.inf), stable=True).indices
+    b_s, by_bucket = torch.sort(bucket[order], stable=True)
+    order = order[by_bucket]
+    idx = torch.arange(n, device=dev)
+    is_start = torch.ones((n,), dtype=torch.bool, device=dev)
+    is_start[1:] = b_s[1:] != b_s[:-1]
+    rank = idx - torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    keep = torch.zeros_like(mask)
+    keep[order] = rank < cap
+    return mask & keep
 
 
 def gaussian_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:

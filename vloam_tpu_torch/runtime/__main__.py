@@ -10,10 +10,13 @@ brief``) descriptors with the brute-force matcher.  ``--refine`` fuses the
 three chains in a pose graph when the run ends (``MO{d}_refined.txt``);
 ``--loop-closure`` adds loop factors between revisited keyframes;
 ``--exclude-unreliable`` keeps occluded and parallel-beam points out of the
-features.  Flags of features that are not ported yet (``--debug-dir``, the
-other descriptor families and detectors, ``--matcher flann``, ``--clahe``,
-``--distortion``) are passed on and the module that would implement them
-raises ``NotImplementedError``.
+features.  ``--distortion`` undistorts the sweeps in LO, ``--clahe``
+equalises the images before detection, ``--detector fast`` detects FAST
+corners, ``--keypoint-nms`` thins them per bucket, and ``--debug-dir``
+with ``--debug-every`` dumps keypoint, flow and depth PNGs (for synthetic
+runs too).  Flags of features that are not ported yet (the scale-space
+detectors, the other descriptor families, ``--matcher flann``) are passed on
+and the module that would implement them raises ``NotImplementedError``.
 
 Examples:
   # synthetic end-to-end smoke (no data needed)
@@ -21,6 +24,10 @@ Examples:
 
   # the same with VO matching ORB descriptors instead of tracking (KLT)
   python -m vloam_tpu_torch.runtime --dataset synthetic --frames 10 --descriptor-match
+
+  # undistorted sweeps, CLAHE + FAST + keypoint NMS, debug PNGs every 5th frame
+  python -m vloam_tpu_torch.runtime --dataset synthetic --frames 10 --distortion \
+      --clahe --detector fast --keypoint-nms --debug-dir dbg --debug-every 5
 
   # pose-graph refinement with loop closure when the run ends
   python -m vloam_tpu_torch.runtime --dataset synthetic --frames 30 --refine --loop-closure
@@ -157,8 +164,6 @@ def main(argv=None) -> None:
 
     from vloam_tpu_torch.runtime.driver import run_kitti, run_synthetic
 
-    # --debug-every only tunes the debug dumps, which VloamDriver refuses
-    # (ROADMAP A5), so it is not passed on
     loop_kw = {
         "loop_radius": args.loop_radius,
         "loop_min_travel": args.loop_min_travel,
@@ -170,7 +175,8 @@ def main(argv=None) -> None:
             cfg, n_frames=args.frames, speed=args.speed, out_dir=args.out,
             verbose=not args.json, lidar_only=args.lidar_only, refine=args.refine,
             loop_closure=args.loop_closure, keyframe_every=args.keyframe_every,
-            loop_kw=loop_kw, device=args.device,
+            loop_kw=loop_kw, debug_dir=args.debug_dir, debug_every=args.debug_every,
+            device=args.device,
         )
     else:
         from vloam_tpu_torch.data.kitti import OdometrySequence, RawSequence
@@ -182,7 +188,7 @@ def main(argv=None) -> None:
         res = run_kitti(cfg, seq, out_dir=args.out, start=args.start, end=args.end,
                         verbose=not args.json, checkpoint_dir=args.checkpoint_dir,
                         checkpoint_every=args.checkpoint_every, resume=args.resume,
-                        debug_dir=args.debug_dir,
+                        debug_dir=args.debug_dir, debug_every=args.debug_every,
                         refine=args.refine, loop_closure=args.loop_closure,
                         keyframe_every=args.keyframe_every, loop_kw=loop_kw,
                         device=args.device)

@@ -28,8 +28,13 @@ C++ host library (``runtime/native``) when it is available, else in NumPy
 prefetcher threads.  ``process`` grids the raw cloud in NumPy, as the
 reference driver does.
 
+With ``debug_dir`` and ``debug_every``, every ``debug_every``-th frame
+writes keypoint, optical-flow and lidar-depth PNGs (``dump_debug``): the
+detection, the KLT track from the previous dumped frame and the projection
+run on the driver's device, the drawing on the host (``utils/visualize``).
+
 The device is ``"cuda"`` unless the caller passes another; a missing GPU
-raises.  Not ported: debug PNGs (ROADMAP A5).
+raises.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ from vloam_tpu_torch.data.stream import camera_matrices
 from vloam_tpu_torch.models import frame_graph as fg
 from vloam_tpu_torch.models.vloam import (VloamOutputs, host_to_device, init_vloam_state,
                                           vloam_step)
-from vloam_tpu_torch.ops.depth_map import DepthBuckets
+from vloam_tpu_torch.ops import image_ops
+from vloam_tpu_torch.ops.depth_map import DepthBuckets, project_cloud
 from vloam_tpu_torch.ops.scan_registration import extract_features_from_grid
 from vloam_tpu_torch.parallel.loop_closure import (detect_revisits, loop_factors,
                                                    register_loop)
@@ -110,6 +116,7 @@ class VloamDriver:
         checkpoint_dir: str | None = None,
         checkpoint_every: int = 0,
         debug_dir: str | None = None,
+        debug_every: int = 0,
         refine: bool = False,
         loop_closure: bool = False,
         keyframe_every: int = 10,
@@ -119,8 +126,6 @@ class VloamDriver:
         loop_min_gap: int = 3,
         device="cuda",
     ):
-        if debug_dir:
-            raise NotImplementedError("debug PNG dumps (debug_dir) are not ported yet (ROADMAP A5)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ext = fg.Extrinsics(*(x.to(self.device) for x in ext))
@@ -129,6 +134,11 @@ class VloamDriver:
         self.count = 0
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
+        self.debug_dir = debug_dir
+        self.debug_every = debug_every
+        self._debug_prev = None      # (image, keypoints, mask) of the last dumped frame
+        if debug_dir:
+            os.makedirs(debug_dir, exist_ok=True)
         # Pose-graph back end: the per-frame f64 world poses of the three
         # chains, fused after the sequence.
         self.refine = refine or loop_closure
@@ -226,6 +236,35 @@ class VloamDriver:
             grid, gmask, _ = grid_cloud(cloud.astype(np.float32), cfg.scan)
         return self.process_grid(image, grid, gmask)
 
+    def dump_debug(self, image: np.ndarray, grid: np.ndarray, gmask: np.ndarray) -> None:
+        """Write keypoint / optical-flow / lidar-depth debug PNGs of the
+        CURRENT frame (the reference's visualize_depth /
+        visualize_optical_flow rviz topics, visual_odometry.cpp:548-581)
+        into debug_dir: ``keypoints_%06d.png``, ``flow_%06d.png`` (the track
+        from the previous dumped frame) and ``depth_%06d.png``."""
+        from vloam_tpu_torch.utils import visualize as viz
+
+        cfg, dev = self.cfg, self.device
+        img = pad_image(image, cfg)
+        imt = host_to_device(img, dev)
+        kp, kp_mask, _ = image_ops.detect_corners(imt, cfg.visual)
+        viz.save_png(os.path.join(self.debug_dir, f"keypoints_{self.count:06d}.png"),
+                     viz.draw_keypoints(img, kp.cpu().numpy(), kp_mask.cpu().numpy()))
+        if self._debug_prev is not None:
+            pimg, pkp, pmask = self._debug_prev
+            curr, ok = image_ops.lk_track_fb(host_to_device(pimg, dev), imt, pkp, pmask,
+                                             cfg.visual)
+            viz.save_png(os.path.join(self.debug_dir, f"flow_{self.count:06d}.png"),
+                         viz.draw_flow(img, pkp.cpu().numpy(), curr.cpu().numpy(),
+                                       ok.cpu().numpy()))
+        proj = self.ext.P_rect0 @ self.ext.R_rect0 @ self.ext.cam_T_velo
+        uvz, ok = project_cloud(host_to_device(grid.reshape(-1, 4)[:, :3], dev),
+                                host_to_device(gmask.reshape(-1), dev), proj, cfg.visual)
+        uvz, ok = uvz.cpu().numpy(), ok.cpu().numpy()
+        viz.save_png(os.path.join(self.debug_dir, f"depth_{self.count:06d}.png"),
+                     viz.draw_depth(img, uvz[:, :2], uvz[:, 2], ok))
+        self._debug_prev = (img, kp, kp_mask)
+
     def process_grid(
         self, image: np.ndarray | None, grid: np.ndarray, gmask: np.ndarray
     ) -> VloamOutputs:
@@ -237,6 +276,8 @@ class VloamDriver:
         else:
             img = pad_image(image, cfg)
         grid, gmask = np.asarray(grid), np.asarray(gmask)
+        if self.debug_dir and self.debug_every and self.count % self.debug_every == 0:
+            self.dump_debug(img, grid, gmask)
         if self.loop_closure and self.count % self.keyframe_every == 0:
             self._keyframes[self.count] = (grid, gmask)
         use_native = native.available()
@@ -504,15 +545,20 @@ def run_synthetic(
     loop_closure: bool = False,
     keyframe_every: int = 10,
     loop_kw: dict | None = None,
+    debug_dir: str | None = None,
+    debug_every: int = 0,
     device="cuda",
 ):
     """Full-pipeline run on the synthetic raycast world.  Returns a dict of
     drift metrics vs the exact trajectory (the replacement for the
     reference's saved-rosbag smoke runs); with ``refine`` also the refined
-    trajectory's final error (``final_err_refined_m``)."""
+    trajectory's final error (``final_err_refined_m``).  ``debug_dir`` /
+    ``debug_every`` dump debug PNGs as in ``run_kitti`` (the reference's
+    ``run_synthetic`` has no such options)."""
     dev = resolve_device(device)
     ext = fg.kitti_default_extrinsics(dev)
-    driver = VloamDriver(cfg, ext, out_dir, refine=refine, loop_closure=loop_closure,
+    driver = VloamDriver(cfg, ext, out_dir, debug_dir=debug_dir, debug_every=debug_every,
+                         refine=refine, loop_closure=loop_closure,
                          keyframe_every=keyframe_every, device=dev, **(loop_kw or {}))
     boxes = synthetic.default_scene()
     poses = synthetic.straight_trajectory(n_frames, speed=speed, yaw_rate=yaw_rate)
@@ -581,6 +627,7 @@ def run_kitti(
     checkpoint_every: int = 0,
     resume: str | None = None,
     debug_dir: str | None = None,
+    debug_every: int = 0,
     refine: bool = False,
     loop_closure: bool = False,
     keyframe_every: int = 10,
@@ -596,7 +643,8 @@ def run_kitti(
     ext = extrinsics_from_calib(sequence.calib, dev)
     driver = VloamDriver(cfg, ext, out_dir,
                          checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-                         debug_dir=debug_dir, refine=refine, loop_closure=loop_closure,
+                         debug_dir=debug_dir, debug_every=debug_every, refine=refine,
+                         loop_closure=loop_closure,
                          keyframe_every=keyframe_every, device=dev, **(loop_kw or {}))
     if resume:
         start = driver.restore_checkpoint(resume)
