@@ -24,15 +24,19 @@ Phases, each printed on its own lines:
    kernel, bit for bit; ``nn1``; one k outside the register instantiations)
    and the map association built on it, the VO GN solve on a tracked frame,
    the KLT patch gather at the two coarse pyramid levels of frame 1 and
-   at level 0 of a tracked frame, and its single-image and stacked launch
-   forms at the ORB frontend's shape and at a BRISK blur stack's; with the
+   at level 0 of a tracked frame, and its single-image launch form at the
+   ORB frontend's shape (with ORB's pattern comparisons, the tap gather
+   against the reference's TPU product, timed both ways); with the
    tolerances below, the median times of both (CUDA events, 20 runs), for
    the k-NN and Gauss-Newton kernels, the KLT gather at level 0 and the
-   gather's two other forms (and their index-call library) the device time
-   per call when 20 calls are captured in one CUDA graph and replayed, with
-   its share of the kernel's roofline bound, and each kernel's bound (a
+   single form (and the gathers' index-call library) the device time per
+   call when 20 calls are captured in one CUDA graph and replayed, with its
+   share of the kernel's roofline bound, and each kernel's bound (a
    gather's counts the image floats its windows read, once, and the share of
-   the images they cover at the KLT's level-0 call).
+   the images they cover at the KLT's level-0 call).  The gather's stacked
+   form at BRISK's own calls and its single form at SIFT's (P = 24) are
+   checked and timed the same way after phase 14, on the calls phase 14's
+   drives made.
    Then (3b) the single-problem map association path, driven with the
    launch counts at 0: MO's two outer iterations with one k-NN launch per
    feature type, against the fused path from the same pose;
@@ -114,7 +118,16 @@ Phases, each printed on its own lines:
    the FAST detector, 12 frames of the full step: VO drift, the fewest
    tracks a frame, launches; (d) ``run_synthetic`` with ``debug_dir``,
    ``debug_every=5`` over 10 frames: the PNG counts, each decoded to the
-   image's shape.
+   image's shape;
+14. the feature families: 12 frames of the full step in (D) for each of
+   (brisk, brisk, bf), (brisk, freak, bf), (akaze, akaze, bf), (sift, sift,
+   flann) and (fast, brief, flann) in descriptor mode, and the ORB detector
+   in KLT mode, through ``vo_step``'s dispatch and the ImageUtil facade:
+   launches a frame (B2 by form and window side: 8 stacked for BRISK and
+   FREAK, 8 single at P = 24 for SIFT, 4 single at P = 32 for AKAZE, 1 for
+   BRIEF), no more synchronising calls than phase 9, finite poses, MO within
+   3 %; printed, not gated: the fewest matches (or tracks) a frame, the VO
+   end error, ms/frame.
 
 Phase 3 also holds the batched B3 (``solve_pose_gn_lidar_batched``, seven
 seeds of frame 15's LO solve) to its plain version, its batch of one to the
@@ -194,11 +207,20 @@ VALIDATION_FRAMES = 60  # the validation drive of phase 12 (tools/validate_drive
 DISTORTION_ON_TOL, DISTORTION_GAIN = 0.08, 0.5   # err_on < 0.08 m, err_on < 0.5 err_off
 DEBUG_FRAMES, DEBUG_EVERY = 10, 5
 MIN_TRACKS = 10          # vo_step solves only with >= 10 tracks (visual_odometry.py)
+# phase 14: descriptor mode with (detector, descriptor, matcher) of
+# tests/test_vo_descriptor_modes.py:40-47 but ORB's (phase 9), then the ORB detector in KLT mode
+FAMILY_CASES = (("brisk", "brisk", "bf"), ("brisk", "freak", "bf"), ("akaze", "akaze", "bf"),
+                ("sift", "sift", "flann"), ("fast", "brief", "flann"))
+# B2's launches a frame by form, and its window side, for each descriptor family:
+# BRISK/FREAK sample upright, then rotated, at 4 octaves; SIFT orients, then describes, at 4
+FAMILY_B2 = {"brisk": {"stack": 8}, "freak": {"stack": 8}, "akaze": {"single": 4},
+             "sift": {"single": 8}, "brief": {"single": 1}}
+FAMILY_P = {"brisk": 32, "freak": 32, "akaze": 32, "sift": 24, "brief": 32}
+CAPTURE_FRAME = 5        # the frame of the BRISK and SIFT drives whose B2 calls phase 3 checks
 # the ring course of tests/test_driver_loop_closure.py (phase 10)
 RING_FRAMES, RING_SPEED = 56, 1.1
 RING_KW = dict(keyframe_every=5, loop_radius=6.0, loop_min_travel=25.0, loop_drift_rate=0.02,
                loop_min_gap=3)
-BRISK_BLUR_SIGMAS = (0.8, 1.8, 3.2)   # the blur stack of one BRISK octave (ops/brisk.py:41)
 
 KERNELS = {   # name: (source under vloam_tpu_torch/csrc, the TPU kernel it replaces)
     "knn_pair": ("knn_pair.cu", "vloam_tpu/ops/pallas_knn.py:124"),
@@ -222,7 +244,12 @@ KERNELS = {   # name: (source under vloam_tpu_torch/csrc, the TPU kernel it repl
     "gather_resident_mma": ("gather_variants.cu", "tools/gather_experiments.py:612"),
 }
 # the other two launch forms of the gather_patches kernel, listed under its entry
-GATHER_FORMS = ("gather_patches_single", "gather_patches_stack")
+GATHER_FORMS = ("gather_patches_single", "gather_patches_stack", "gather_patches_single_p24")
+GATHER_CALLERS = {   # where each form runs on the system's paths
+    "gather_patches_single": "the ORB/BRIEF descriptors (phase 9), AKAZE's patches (phase 14)",
+    "gather_patches_stack": "the BRISK/FREAK descriptors' blur stacks (phase 14)",
+    "gather_patches_single_p24": "SIFT's orientation and descriptor patches (phase 14)",
+}
 
 
 def card_line() -> str:
@@ -364,7 +391,6 @@ def main() -> int:
                 for site, kind in (("LO", "gn"), ("MO", "gn"), ("VO", "gn_vo"))}
     gn_sites["LO batched"] = batched_gn_args(gn_sites["LO"])
     del calls
-    launches["gather_patches_stack"] = check_stack_path(cfg, dframes[KERNEL_FRAME][0], card)
     launches.update(check_variants(results, card))
     slice_syncs = check_slice(cfg, dframes[:N_SHORT], poses, card)
     step_launches, per_frame, step_syncs = check_step(cfg, ext, dframes, poses, card, slice_syncs)
@@ -377,8 +403,8 @@ def main() -> int:
     check_cli(card)
     check_cli(card, "--descriptor-match")
     dframes = [frame_to_device(*f, dev) for f in frames[:N_SHORT]]
-    launches["gather_patches_single"] = check_descriptor_mode(cfg, ext, dframes, poses, card,
-                                                              step_syncs)
+    launches["gather_patches_single"], desc_syncs = check_descriptor_mode(cfg, ext, dframes, poses,
+                                                                          card, step_syncs)
     del dframes
     launches["gn_lidar_batched"] = check_close(cfg, card)
     check_raw_input(cfg, ext, raw, poses, card, per_frame, step_syncs)
@@ -386,7 +412,11 @@ def main() -> int:
     del frames
     check_validation_drive(cfg, ext, card)
     check_options(cfg, ext, raw, short, poses, card, per_frame)
-    del short, raw
+    family_launches, captured = check_feature_families(cfg, ext, short, poses, card, per_frame,
+                                                       desc_syncs)
+    launches.update(family_launches)
+    check_family_gathers(captured, results, card)
+    del short, raw, captured
     count_gn_kernels(gn_sites, card)
     count_gather_kernels(card)
 
@@ -402,9 +432,7 @@ def main() -> int:
 
     kern = [entry(name, source=f"vloam_tpu_torch/csrc/{src}", replaces=rep)
             for name, (src, rep) in KERNELS.items()]
-    forms = [entry(name) for name in GATHER_FORMS]
-    # the stacked form's launches are those of check_stack_path's one call, not of a system path
-    forms[1]["caller"] = "none in the port yet (the BRISK/FREAK descriptor support): driven alone"
+    forms = [dict(entry(name), caller=GATHER_CALLERS[name]) for name in GATHER_FORMS]
     next(k for k in kern if k["name"] == "gather_patches")["forms"] = forms
     print(json.dumps({"kernels": kern}))
     print(card)
@@ -469,27 +497,14 @@ def knn_work(q, cand, mask, k, q_count, c_count):
     return KNN_PAIR_OPS * live_q * live_c, 12 * (m + n) + n + 12 * m * k
 
 
-def check_kernels(cfg, ext, dframes, card):
-    """Phase 3; returns ({kernel: {"err", "ms", "plain_ms", "ops_ms",
-    "bytes_ms", "library_ms"}}, the captured calls).  Times add up over the
-    call shapes timed for a kernel, and so do the two roofline times
-    (operations over PEAK_F32, bytes over PEAK_BW) of the same calls.
-    ``library_ms`` is the time of the one PyTorch call that computes the same
-    function on the same inputs, None where there is none."""
-    from vloam_tpu_torch.models.vloam import init_vloam_state
-    from vloam_tpu_torch.ops import fused_knn, knn, patch_gather
-    from vloam_tpu_torch.tools import knn_check
-    from vloam_tpu_torch.tools.gather_experiments import graph_ms, patch_bytes, window_floats
-
-    last = KERNEL_FRAME
-    print(f"== phase 3: kernels vs plain PyTorch versions, at the frame step's call shapes "
-          f"(a {N_WARMUP}-frame warm-up drive of the full step; frames 1, {last} and "
-          f"{REBUILT_FRAME}) [{card}]")
-    state, calls = capture_calls(init_vloam_state(cfg, dframes[0][0].device), dframes[:N_WARMUP],
-                                 ext, cfg, keep={1, last, REBUILT_FRAME})
-    del state
-    results = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-                   "library_ms": None} for k in (*KERNELS, *GATHER_FORMS)}
+def make_timer(results, card):
+    """``timed(name, label, kernel, plain, ops, nbytes, library=None,
+    graph=False)``: times the kernel's wrapper and its plain version (CUDA
+    events), with ``graph`` its device time inside a replayed CUDA graph,
+    prints them beside the bound (``ops`` over PEAK_F32, ``nbytes`` over
+    PEAK_BW) and adds them up into ``results[name]``; ``library`` is the one
+    PyTorch call for the same function.  Returns the kernel's ms."""
+    from vloam_tpu_torch.tools.gather_experiments import graph_ms
 
     def timed(name, label, kernel, plain, ops, nbytes, library=None, graph=False):
         ms, plain_ms = time_ms(kernel), time_ms(plain)
@@ -511,14 +526,43 @@ def check_kernels(cfg, ext, dframes, card):
               f"({ops / 1e6:.2f} MFLOP -> {ops_ms:.5f} ms, {nbytes / 1e6:.3f} MB -> "
               f"{bytes_ms:.5f} ms) [{card}]")
         if library is not None:
-            r["library_ms"] = time_ms(library)
+            lib_ms = time_ms(library)
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
             lib_device = ""
             if graph:
-                r["library_device_ms"] = graph_ms(library)
-                lib_device = f" ({r['library_device_ms']:.4f} ms a call inside a replayed graph)"
+                lib_dev = graph_ms(library)
+                r["library_device_ms"] = r.get("library_device_ms", 0.0) + lib_dev
+                lib_device = f" ({lib_dev:.4f} ms a call inside a replayed graph)"
             print(f"  {name} {label}: the one PyTorch call for the same function "
-                  f"{r['library_ms']:.4f} ms{lib_device} [{card}]")
+                  f"{lib_ms:.4f} ms{lib_device} [{card}]")
         return ms
+
+    return timed
+
+
+def check_kernels(cfg, ext, dframes, card):
+    """Phase 3; returns ({kernel: {"err", "ms", "plain_ms", "ops_ms",
+    "bytes_ms", "library_ms"}}, the captured calls).  Times add up over the
+    call shapes timed for a kernel, and so do the two roofline times
+    (operations over PEAK_F32, bytes over PEAK_BW) of the same calls.
+    ``library_ms`` is the time of the one PyTorch call that computes the same
+    function on the same inputs, None where there is none."""
+    from vloam_tpu_torch.models.vloam import init_vloam_state
+    from vloam_tpu_torch.ops import fused_knn, knn, patch_gather
+    from vloam_tpu_torch.tools import knn_check
+    from vloam_tpu_torch.tools.gather_experiments import (graph_ms, patch_bytes, window_floats,
+                                                          window_view)
+
+    last = KERNEL_FRAME
+    print(f"== phase 3: kernels vs plain PyTorch versions, at the frame step's call shapes "
+          f"(a {N_WARMUP}-frame warm-up drive of the full step; frames 1, {last} and "
+          f"{REBUILT_FRAME}) [{card}]")
+    state, calls = capture_calls(init_vloam_state(cfg, dframes[0][0].device), dframes[:N_WARMUP],
+                                 ext, cfg, keep={1, last, REBUILT_FRAME})
+    del state
+    results = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                   "library_ms": None} for k in (*KERNELS, *GATHER_FORMS)}
+    timed = make_timer(results, card)
 
     def cdist_topk(label, q, cand, k):
         ms = time_ms(lambda: torch.topk(torch.cdist(q[None], cand[None])[0], k, dim=1,
@@ -663,14 +707,21 @@ def check_kernels(cfg, ext, dframes, card):
                   f"{2 * img.numel()} floats ({under / (2 * img.numel()):.1%}); bound bytes "
                   f"{nbytes / 1e6:.3f} MB, the two whole images counted once "
                   f"{(nbytes + 4 * (2 * img.numel() - under)) / 1e6:.3f} MB")
+            # the library call: one index call on the view of every window of the
+            # two images stacked beforehand (the stack's copy is not timed)
+            pair_windows = window_view(torch.stack([args[0], args[1]]))
+            n = args[2].shape[0]
+            ids = torch.arange(2, device=img.device).repeat_interleave(n)
+            cxy = torch.cat([args[2], args[3]]).to(torch.int64)
+            assert torch.equal(pair_windows[ids, cxy[:, 1], cxy[:, 0]], torch.cat(ref)), \
+                "pair: library call differs from plain"
             timed("gather_patches", f"{label} {tuple(img.shape)} N={got[0].shape[0]}",
                   lambda: patch_gather.gather_patches_pair(*args),
                   lambda: patch_gather.gather_patches_pair_reference(*args), 0, nbytes,
-                  graph=True)
+                  library=lambda: pair_windows[ids, cxy[:, 1], cxy[:, 0]], graph=True)
     check_gather_forms(cfg, dframes[last][0], timed, results)
-    print("  library_ms is null for the k-NN and Gauss-Newton kernels and the two-image gather: "
-          "no single PyTorch call computes a masked k-NN with dynamic counts, a fused "
-          "Gauss-Newton solve, or windows of two separate images")
+    print("  library_ms is null for the k-NN and Gauss-Newton kernels: no single PyTorch call "
+          "computes a masked k-NN with dynamic counts or a fused Gauss-Newton solve")
     return results, calls
 
 
@@ -1000,24 +1051,13 @@ def orb_corners(img, cfg):
     return image_ops._sep_conv(img, orb._SMOOTH, orb._SMOOTH), corner
 
 
-def blur_stack(img):
-    """The (3, H, W) blur stack of BRISK's octave 0 (vloam_tpu/ops/brisk.py:263-270)."""
-    from vloam_tpu_torch.ops import image_ops
-
-    blurs = []
-    for sig in BRISK_BLUR_SIGMAS:
-        r = max(int(np.ceil(2.5 * sig)), 1)
-        k1 = np.exp(-0.5 * (np.arange(-r, r + 1) / sig) ** 2)
-        k1 = [float(v) for v in (k1 / k1.sum()).astype(np.float32)]
-        blurs.append(image_ops._sep_conv(img, k1, k1))
-    return torch.stack(blurs).contiguous()
-
-
 def check_gather_forms(cfg, img, timed, results):
-    """Phase 3, the single-image and stacked launch forms of the patch gather
-    against their plain versions (equality), at the ORB frontend's shape and
-    at a BRISK blur stack's.  The library call of each is one index call on
-    the view of all the image's windows."""
+    """Phase 3, the single-image launch form of the patch gather against its
+    plain version (equality) at the ORB frontend's shape, and its library
+    call, one index call on the view of all the image's windows; then ORB's
+    pattern comparisons on those patches (``check_descriptor_bits``).  The
+    stacked form and the single form at P = 24 are held at their callers'
+    own calls after phase 14 (``check_family_gathers``)."""
     from vloam_tpu_torch.ops import patch_gather
     from vloam_tpu_torch.tools.gather_experiments import patch_bytes, window_view
 
@@ -1039,42 +1079,86 @@ def check_gather_forms(cfg, img, timed, results):
           lambda: patch_gather.gather_patches(smooth, corner),
           lambda: patch_gather.gather_patches_reference(smooth, corner), 0,
           patch_bytes(smooth.shape, corner), library=lambda: windows[cy, cx], graph=True)
-
-    stack = blur_stack(img)
-    got = patch_gather.gather_patches_stack(stack, corner)
-    ref = patch_gather.gather_patches_stack_reference(stack, corner)
-    stack_windows = window_view(stack)
-    torch.cuda.synchronize()
-    results["gather_patches_stack"]["err"] = float((got - ref).abs().max())
-    assert torch.equal(got, ref), "gather_patches_stack: kernel differs from plain"
-    assert torch.equal(stack_windows[:, cy, cx], ref), "stack: library call differs from plain"
-    print(f"  gather_patches_stack {tuple(stack.shape)} N={n} -> {tuple(got.shape)}: bit-equal to "
-          f"the plain version")
-    timed("gather_patches_stack", f"BRISK blur stack {tuple(stack.shape)} N={n}",
-          lambda: patch_gather.gather_patches_stack(stack, corner),
-          lambda: patch_gather.gather_patches_stack_reference(stack, corner), 0,
-          patch_bytes(stack.shape[1:], corner, stack.shape[0]), library=lambda: stack_windows[:, cy, cx], graph=True)
+    check_descriptor_bits(got)
 
 
-def check_stack_path(cfg, img, card):
-    """The stacked launch form, driven alone.  Its only caller in the
-    reference is the BRISK/FREAK descriptor support, which is not ported, so
-    no path of the system reaches it yet: this is that caller's one call (one
-    octave's blur stack of a course image, patches at the detected corners)
-    with the launch count at 0 before it, and the kernels line says so
-    (``caller``).  Returns the launches."""
+def matmul_bits(flat, abin):
+    """ORB's 256 comparisons as one f32 product against the (30 * 256, 1024)
+    matrix of +-1 tap differences, each keypoint then taking its angle
+    bin's row block: the formulation the reference takes on the TPU
+    (vloam_tpu/ops/orb.py:125-157), kept here only as a yardstick for
+    ``orb._descriptor_bits``'s tap gather."""
+    from vloam_tpu_torch.ops import orb
+
+    k = orb._consts(flat.device)
+    pix = torch.arange(orb.PATCH * orb.PATCH, device=flat.device)
+    d = ((pix[None, :] == k["bank2"].reshape(-1)[:, None]).to(torch.float32)
+         - (pix[None, :] == k["bank1"].reshape(-1)[:, None]).to(torch.float32))
+    diff = (flat @ d.T).reshape(-1, orb.N_ANGLES, orb.N_BITS)
+    return torch.gather(diff, 1, abin[:, None, None].expand(-1, 1, orb.N_BITS))[:, 0] > 0
+
+
+def check_descriptor_bits(patches):
+    """ORB's pattern comparisons (``orb._descriptor_bits``, a tap gather) on
+    the ORB frontend's patches against ``matmul_bits``: equal bits, and the
+    time of each (CUDA events and inside a replayed CUDA graph)."""
+    from vloam_tpu_torch.ops import orb
+    from vloam_tpu_torch.tools.gather_experiments import graph_ms
+
+    flat = patches.reshape(patches.shape[0], -1)
+    abin = torch.remainder(torch.arange(flat.shape[0], device=flat.device), orb.N_ANGLES)
+    tap = lambda: orb._descriptor_bits(flat, abin)  # noqa: E731
+    mm = lambda: matmul_bits(flat, abin)  # noqa: E731
+    assert torch.equal(tap(), mm()), "ORB bits: the tap gather and the product differ"
+    times = [f(g) for g in (tap, mm) for f in (time_ms, graph_ms)]
+    print(f"  orb._descriptor_bits on the ORB frontend's {flat.shape[0]} patches (every angle "
+          f"bin): tap gather {times[0]:.4f} ms ({times[1]:.5f} ms inside a replayed graph), "
+          f"the +-1 product of the reference's TPU branch {times[2]:.4f} ms ({times[3]:.5f} ms); "
+          f"equal bits")
+
+
+def check_family_gathers(captured, results, card):
+    """Phase 3, after phase 14: B2's stacked form at BRISK's own calls (one
+    frame's four octave blur stacks, then the same four again for the
+    rotated pass) and its single form at P = 24 at SIFT's own calls (one
+    frame's four octave levels, 376x1248 down to 47x156, at SIFT's
+    keypoints, then the same four again for the descriptor), each bit-equal
+    to its plain version; the first four timed (CUDA events and inside a
+    replayed CUDA graph) beside their bound (the image floats the windows
+    read, the corners and the output) and their library call (one index
+    call on the view of every window)."""
     from vloam_tpu_torch.ops import patch_gather
+    from vloam_tpu_torch.tools.gather_experiments import patch_bytes, window_view
 
-    _, corner = orb_corners(img, cfg)
-    patch_gather.LAUNCHES_STACK = 0
-    out = patch_gather.gather_patches_stack(blur_stack(img), corner)
-    torch.cuda.synchronize()
-    launches = patch_gather.LAUNCHES_STACK
-    assert launches == 1 and bool(torch.isfinite(out).all())
-    assert tuple(out.shape) == (len(BRISK_BLUR_SIGMAS), corner.shape[0], 32, 32)
-    print(f"  gather_patches_stack on a BRISK octave's blur stack: {launches} launch, "
-          f"{tuple(out.shape)} finite patches [{card}]")
-    return launches
+    timed = make_timer(results, card)
+    print(f"== phase 3 at phase 14's calls: the patch gather's stacked form at BRISK's calls, its "
+          f"single form at SIFT's (P = 24) [{card}]")
+    for name, calls in (("gather_patches_stack", captured["stack"]),
+                        ("gather_patches_single_p24", captured["single_p24"])):
+        stacked = name == "gather_patches_stack"
+        kernel, plain = ((patch_gather.gather_patches_stack,
+                          patch_gather.gather_patches_stack_reference) if stacked else
+                         (patch_gather.gather_patches, patch_gather.gather_patches_reference))
+        assert len(calls) == 8, f"{name}: {len(calls)} calls on the captured frame, want 8"
+        for i, args in enumerate(calls):
+            imgs, corner, P = args
+            got, ref = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            results[name]["err"] = max(results[name]["err"], float((got - ref).abs().max()))
+            assert torch.equal(got, ref), f"{name} call {i}: kernel differs from plain"
+            if i >= 4:
+                continue
+            windows = window_view(imgs, P)
+            cx, cy = corner[:, 0], corner[:, 1]
+            lib = ((lambda w=windows, x=cx, y=cy: w[:, y, x]) if stacked
+                   else (lambda w=windows, x=cx, y=cy: w[y, x]))
+            assert torch.equal(lib(), ref), f"{name} call {i}: library call differs from plain"
+            nbytes = patch_bytes(tuple(imgs.shape[-2:]), corner, imgs.shape[0] if stacked else 1, P)
+            timed(name, f"octave {i} {tuple(imgs.shape)} N={corner.shape[0]} P={P}",
+                  lambda a=args: kernel(*a), lambda a=args: plain(*a), 0, nbytes, library=lib,
+                  graph=True)
+        print(f"  {name}: the frame's {len(calls)} calls bit-equal to the plain version; the "
+              f"times above add up over its first 4 (one pass over the octaves)")
 
 
 def check_variants(results, card):
@@ -1618,7 +1702,8 @@ def check_cli(card, *flags):
 
 def check_descriptor_mode(cfg, ext, dframes, poses, card, step_syncs):
     """Phase 9: the full step in (D) with VO matching ORB descriptors instead
-    of tracking.  Returns the launches of the single-image patch gather."""
+    of tracking.  Returns the launches of the single-image patch gather and
+    the SyncCounter of SYNC_FRAME."""
     import dataclasses
 
     from vloam_tpu_torch.models.vloam import init_vloam_state, vloam_step
@@ -1685,7 +1770,7 @@ def check_descriptor_mode(cfg, ext, dframes, poses, card, step_syncs):
           f"KLT mode (phase 5): {step_syncs.count}"
           + (f"; other warnings: {syncs.other}" if syncs.other else ""))
     del state, vo_states
-    return launches
+    return launches, syncs
 
 
 
@@ -2297,6 +2382,122 @@ def check_debug_dumps(cfg, ext, card):
     print(f"    {len(names)} PNGs ({', '.join(names)}), each {vc.img_height}x{vc.img_width}x3 "
           f"uint8; MO final error {res['final_err_mo_m']:.3f} m; steady_ms_per_frame "
           f"{res['steady_ms_per_frame']:.3f} with the dumps on [{card}]")
+
+
+def check_feature_families(cfg, ext, short, poses, card, step_per_frame, desc_syncs):
+    """Phase 14: the full step in (D) with each feature family of the
+    reference's frontend (``FAMILY_CASES``, through ``vo_step``'s dispatch
+    and the ImageUtil facade), and the ORB detector in KLT mode.  Returns
+    (B2's launches by the stacked form and by the single form at P = 24 over
+    these drives, and the calls of the two forms on ``CAPTURE_FRAME`` of the
+    BRISK and SIFT drives for ``check_family_gathers``)."""
+    import dataclasses
+
+    from vloam_tpu_torch import image_util as iu
+    from vloam_tpu_torch.models.vloam import frame_to_device, init_vloam_state, vloam_step
+    from vloam_tpu_torch.ops import (akaze, brisk, fused_gn, fused_knn, image_ops, orb,
+                                     patch_gather, sift)
+
+    dev = ext.P_rect0.device
+    print(f"== phase 14: feature families, full step vloam_step (D), kitti_hdl64, {len(short)} "
+          f"frames each [{card}]")
+    launches = {"gather_patches_stack": 0, "gather_patches_single_p24": 0}
+    captured = {"stack": [], "single_p24": []}
+    for det, desc, matcher in FAMILY_CASES + (("orb", None, None),):
+        klt = desc is None
+        kw = (dict(detector_type=det) if klt else
+              dict(optical_flow_match=False, detector_type=det, descriptor_type=desc,
+                   matcher_type=matcher))
+        fcfg = cfg.replace(visual=dataclasses.replace(cfg.visual, **kw))
+        case = f"detector {det}, KLT" if klt else f"detector {det}, descriptor {desc}, {matcher}"
+        dframes = [frame_to_device(*f, dev) for f in short]
+        fresh_device(dev)
+        counters = dict(launch_counters(), gather_single=lambda: patch_gather.LAUNCHES_SINGLE,
+                        gather_stack=lambda: patch_gather.LAUNCHES_STACK)
+        fused_knn.LAUNCHES = fused_gn.LAUNCHES = fused_gn.LAUNCHES_VO = 0
+        patch_gather.LAUNCHES = patch_gather.LAUNCHES_SINGLE = patch_gather.LAUNCHES_STACK = 0
+        frame, sides, vo_states, tracks = [0], collections.Counter(), [], []
+        keep = {"brisk": "stack", "sift": "single_p24"}.get(desc)
+
+        def recorder(fn, form):
+            def record(*args):
+                sides[(form, args[2])] += 1
+                if frame[0] == CAPTURE_FRAME and keep is not None:
+                    captured[keep].append(args)
+                return fn(*args)
+            return record
+
+        def step(s, f):
+            img, g, m, bk, lf = f
+            s, out = vloam_step(s, img, g, m, ext, fcfg, pre_gridded=True, pre_buckets=bk,
+                                pre_lf_table=lf)
+            vo_states.append(s.vo)
+            frame[0] += 1
+            return s, out
+
+        real_track = image_ops.lk_track_fb
+
+        def track(*a, **k):
+            curr, ok = real_track(*a, **k)
+            tracks.append(ok.sum())              # read after the drive: no sync inside it
+            return curr, ok
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(
+                brisk, "gather_patches_stack", recorder(patch_gather.gather_patches_stack, "stack")))
+            for mod in (sift, akaze, orb):
+                stack.enter_context(mock.patch.object(
+                    mod, "gather_patches", recorder(patch_gather.gather_patches, "single")))
+            stack.enter_context(mock.patch.object(image_ops, "lk_track_fb", track))
+            state = init_vloam_state(fcfg, dev)
+            first_vo = state.vo
+            _, outs, frame_ms, per_frame, syncs = drive(step, state, dframes, counters)
+
+        want_b2 = FAMILY_B2.get(desc, {})
+        for i in range(len(dframes)):
+            got = {name: per_frame[name][i] for name in counters}
+            want = {"knn_pair": 4 if i else 0, "gn_lidar": 4 if i else 0, "gn_vo": 1,
+                    "gather_patches": step_per_frame["gather_patches"][i] if klt else 0,
+                    "gather_single": want_b2.get("single", 0),
+                    "gather_stack": want_b2.get("stack", 0)}
+            assert got == want, f"{case} frame {i}: launches {got}, want {want}"
+        want_sides = {(form, FAMILY_P[desc]): n * len(dframes) for form, n in want_b2.items()}
+        assert dict(sides) == want_sides, f"{case}: B2 calls by (form, P) {dict(sides)}"
+        for i, out in enumerate(outs):
+            for name, v in out._asdict().items():
+                assert bool(torch.isfinite(v.to(torch.float32)).all()), \
+                    f"{case} frame {i}: non-finite {name}"
+        assert syncs.count <= desc_syncs.count, \
+            f"{case}: {syncs.count} synchronising calls in frame {SYNC_FRAME}, phase 9 makes " \
+            f"{desc_syncs.count} ({', '.join(syncs.sites)})"
+        if klt:
+            counts = [int(t) for t in tracks]
+        else:   # the matches each frame's solve saw, recomputed from the rolled descriptors
+            counts = [int(iu.match(p.prev_desc, p.prev_desc_mask, c.prev_desc, c.prev_desc_mask,
+                                   matcher_type=matcher, select=fcfg.visual.match_select,
+                                   ratio=fcfg.visual.match_ratio)[1].sum())
+                      for p, c in zip([first_vo] + vo_states[:-1], vo_states)]
+        print(f"  ({case}) B2 calls a frame by (form, P): "
+              f"{ {k: v // len(dframes) for k, v in sides.items()} }; launches per frame: "
+              f"{', '.join(f'{k} {v[:3]}...' for k, v in per_frame.items())}")
+        print(f"    {'tracks' if klt else 'valid matches'} per frame: {counts} (fewest from frame "
+              f"1: {min(counts[1:])}); keypoints on the last frame: "
+              f"{int(vo_states[-1].prev_pts_mask.sum())}")
+        _, lo_err, mo_err, path = check_lidar(outs, poses, case)
+        vo_err = float(np.linalg.norm(outs[-1].world_vo[4:].cpu().numpy()
+                                      - poses[len(outs) - 1][1]))
+        print(f"    VO (not gated): final error {vo_err:.3f} m ({vo_err / path * 100:.2f} %) over "
+              f"{path:.1f} m; MO {mo_err:.3f} m ({mo_err / path * 100:.2f} %)")
+        print(f"    {ms_line(frame_ms, 5, card)}")
+        print(f"    synchronising calls in frame {SYNC_FRAME}: {syncs.count} "
+              f"({', '.join(syncs.sites)}); phase 9: {desc_syncs.count}"
+              + (f"; other warnings: {syncs.other}" if syncs.other else ""))
+        if desc in ("brisk", "freak"):
+            launches["gather_patches_stack"] += patch_gather.LAUNCHES_STACK
+        if desc == "sift":
+            launches["gather_patches_single_p24"] += patch_gather.LAUNCHES_SINGLE
+        del dframes, vo_states, outs
+    return launches, captured
 
 
 if __name__ == "__main__":

@@ -474,12 +474,59 @@ def test_cli_synthetic_json(tmp_path):
         assert ttraj.load_kitti_trajectory(str(tmp_path / name)).shape == (3, 3, 4)
 
 
-@pytest.mark.parametrize("flag,roadmap", [("--descriptor-match --descriptor brisk", "A5")])
-def test_cli_unported_flag_exits_with_not_implemented(flag, roadmap):
-    res = run_cli("--device", "cpu", "--dataset", "synthetic", "--frames", "2", "--json",
-                  *flag.split())
-    assert res.returncode != 0
-    assert "NotImplementedError" in res.stderr and roadmap in res.stderr, res.stderr[-2000:]
+# put before the CLI script's ``try``: wraps the feature families' functions
+# and records the ones the run reaches
+FAMILY_SPY = textwrap.dedent("""
+    from vloam_tpu_torch.ops import akaze as _ak, brisk as _br, image_ops as _io, orb as _orb
+    from vloam_tpu_torch.ops import sift as _si
+    _hits = set()
+    def _spy(mod, name):
+        real = getattr(mod, name)
+        def wrapped(*a, **k):
+            _hits.add(mod.__name__.rsplit(".", 1)[1] + "." + name)
+            return real(*a, **k)
+        setattr(mod, name, wrapped)
+    for _m, _names in ((_br, ("brisk_detect", "brisk_descriptors", "freak_descriptors")),
+                       (_ak, ("detect", "describe")),
+                       (_si, ("detect", "orient", "describe", "match_float_descriptors",
+                              "match_float_descriptors_approx")),
+                       (_orb, ("orb_descriptors", "match_descriptors",
+                               "match_descriptors_approx")),
+                       (_io, ("shi_tomasi_response",))):
+        for _n in _names:
+            _spy(_m, _n)
+""")
+
+
+@pytest.mark.parametrize("flags,reached", [
+    ("--detector orb --descriptor brisk",
+     ["brisk.brisk_descriptors", "image_ops.shi_tomasi_response", "orb.match_descriptors"]),
+    ("--detector brisk --descriptor freak --matcher flann",
+     ["brisk.brisk_detect", "brisk.freak_descriptors", "orb.match_descriptors_approx"]),
+    ("--detector akaze --descriptor akaze",
+     ["akaze.describe", "akaze.detect", "orb.match_descriptors"]),
+    ("--detector sift --descriptor sift --matcher flann",
+     ["sift.describe", "sift.detect", "sift.match_float_descriptors_approx", "sift.orient"]),
+])
+def test_cli_feature_families(flags, reached):
+    """``--descriptor-match`` with the scale-space detectors, the other
+    descriptor families and ``--matcher flann`` through the CLI on the CPU:
+    exit 0, two frames (the second matches the first's descriptors), and
+    exactly the families' functions the flags name reached."""
+    spy = CLI.replace("try:\n", FAMILY_SPY + "try:\n", 1).replace(
+        "    bad = sorted(", "    print('reached:', sorted(_hits), file=sys.stderr)\n"
+        "    bad = sorted(", 1)
+    assert "_hits" in spy and "reached" in spy
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    res = subprocess.run(
+        [sys.executable, "-c", spy, "--device", "cpu", "--dataset", "synthetic", "--frames", "2",
+         "--json", "--descriptor-match", *flags.split()],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["frames"] == 2 and np.isfinite(out["final_err_vo_m"])
+    assert f"reached: {reached}" in res.stderr, res.stderr[-2000:]
 
 
 # put before the CLI script's ``try``: wraps the ported options' functions

@@ -132,11 +132,16 @@ def test_state_carried_across_from_reference(runs, frames):
 
 
 def test_other_families_still_raise():
+    """Every family of the reference runs (tests/test_torch_image_util.py and
+    the family files); a name it does not know raises ValueError, as there."""
     _, tcfg = configs("orb")
-    for kw in (dict(descriptor_type="brisk"), dict(matcher_type="flann")):
+    for kw, what in ((dict(detector_type="harris"), "detector_type"),
+                     (dict(descriptor_type="surf"), "descriptor_type"),
+                     (dict(matcher_type="lsh"), "matcher_type")):
         cfg = tcfg.replace(visual=dataclasses.replace(tcfg.visual, **kw))
-        with pytest.raises(NotImplementedError, match="A5"):
-            tvo.vo_step(tvo.init_vo_state(cfg, "cpu"), torch.zeros((376, 1248)), torch.eye(3), cfg,
+        with pytest.raises(ValueError, match=what):
+            state = tvo.init_vo_state(configs("orb")[1] if "descriptor_type" in kw else cfg, "cpu")
+            tvo.vo_step(state, torch.zeros((376, 1248)), torch.eye(3), cfg,
                         pre_buckets=TBuckets(*(torch.zeros((2, 2)) for _ in range(4))))
 
 

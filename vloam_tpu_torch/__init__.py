@@ -8,8 +8,10 @@ easy to find:
            the CLI ``python -m vloam_tpu_torch.runtime``
   models : visual_odometry (VO), lidar_odometry (LO), laser_mapping (MO),
            frame_graph, vloam (the full frame step), lidar_slice (LO + MO)
+  image_util: the ImageUtil facade over the feature families
   ops    : geometry-level solvers and searches, the image frontends
-           (``image_ops`` KLT, ``orb`` descriptors and matching); ``knn``,
+           (``image_ops`` KLT, ``orb``, ``brisk``, ``sift`` and ``akaze``
+           keypoints, descriptors and matching); ``knn``,
            ``fused_knn``, ``fused_gn``, ``patch_gather`` and
            ``gather_variants`` hold the wrappers of the hand-written CUDA
            kernels (csrc/) beside their plain PyTorch versions

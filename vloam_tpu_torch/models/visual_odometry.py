@@ -1,29 +1,29 @@
 """Depth-enhanced monocular visual odometry (port of
-``vloam_tpu/models/visual_odometry.py``: the KLT branch and the ORB/BRIEF
-descriptor-match branch).
+``vloam_tpu/models/visual_odometry.py``).
 
 Per frame: optionally CLAHE on the current image (``VisualConfig.clahe``);
-Shi-Tomasi or FAST corners on it, optionally thinned per bucket
-(``keypoint_nms``); the previous frame's
-corners are either tracked into it by forward-backward pyramidal LK, seeded
-by the motion prior (``optical_flow_match=True``), or matched to the current
-corners by ORB/BRIEF descriptors and brute-force Hamming distance
-(``optical_flow_match=False``, ``ops/orb``); depth for each previous corner
-from the previous frame's lidar depth buckets (built by the host, or here
-from the cloud when none are given); matches with depth give 3D-2D
-reprojection residuals, the rest 2D-2D epipolar residuals; one fused GN
-solve (``ops/fused_gn``, the CUDA kernel B4) gives cam0_curr_T_cam0_last.
+keypoints on it: Shi-Tomasi or FAST corners inline, the scale-space
+detectors (BRISK, ORB, AKAZE, SIFT) through the ImageUtil facade
+(``image_util.det_keypoints``), optionally thinned per bucket
+(``keypoint_nms``); the previous frame's keypoints are either tracked into
+it by forward-backward pyramidal LK, seeded by the motion prior
+(``optical_flow_match=True``), or matched to the current keypoints by
+descriptors (``optical_flow_match=False``): ORB/BRIEF with the brute-force
+Hamming matcher inline (``ops/orb``), every other family and the ``flann``
+matcher through the facade (``image_util.desc_keypoints`` and ``match``);
+depth for each previous keypoint from the previous frame's lidar depth
+buckets (built by the host, or here from the cloud when none are given);
+matches with depth give 3D-2D reprojection residuals, the rest 2D-2D
+epipolar residuals; one fused GN solve (``ops/fused_gn``, the CUDA kernel
+B4) gives cam0_curr_T_cam0_last.
 
 ``VoState.count`` is a host ``int``: the frame-0 and coarse-pyramid
 branches are Python ``if``s, and the "enough tracks" gate is a device
 select, so a VO frame reads nothing back from the device.
 
 Binary descriptors are int32 words holding the reference's uint32 bit
-patterns (see ``ops/orb``), in the state and in a checkpoint.
-
-Not ported (ROADMAP A5): the scale-space detectors and the descriptor
-families other than ORB and BRIEF, and the approximate (``flann``)
-matcher, which the reference reaches through its ``image_util`` facade.
+patterns (see ``ops/orb``), in the state and in a checkpoint; SIFT's are
+float32.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from vloam_tpu_torch import geometry as geo
+from vloam_tpu_torch import image_util as iu
 from vloam_tpu_torch.config import VloamConfig
 from vloam_tpu_torch.ops import image_ops, orb
 from vloam_tpu_torch.ops.clahe import clahe
@@ -138,14 +139,6 @@ def vo_step(state: VoState, img: torch.Tensor, K: torch.Tensor, cfg: VloamConfig
     (``depth_map.project_cloud`` + ``build_buckets``), which feed nothing
     else."""
     vc = cfg.visual
-    if vc.detector_type not in ("shitomasi", "fast") or (
-            not vc.optical_flow_match and not (vc.descriptor_type in ("orb", "brief")
-                                               and vc.matcher_type == "bf")):
-        raise NotImplementedError(
-            f"detector_type={vc.detector_type!r}, descriptor_type={vc.descriptor_type!r} with "
-            f"matcher_type={vc.matcher_type!r} is not ported yet (ROADMAP A5): the port detects "
-            "Shi-Tomasi or FAST corners, and descriptor mode runs ORB or BRIEF with the "
-            "brute-force matcher")
     if pre_buckets is None and (cloud is None or cloud_mask is None or proj is None):
         raise ValueError("vo_step needs pre_buckets, or cloud, cloud_mask and proj to build them")
     dev = img.device
@@ -154,7 +147,14 @@ def vo_step(state: VoState, img: torch.Tensor, K: torch.Tensor, cfg: VloamConfig
     # --- frontend -----------------------------------------------------------
     if vc.clahe:
         img = clahe(img, vc.clahe_clip)
-    pts, pts_mask, resp = image_ops.detect_corners(img, vc)
+    if vc.detector_type in ("shitomasi", "fast"):
+        # the hot path: single-scale corner detectors, inline
+        pts, pts_mask, resp = image_ops.detect_corners(img, vc)
+        kp_oct = kp_ang = None
+    else:
+        # the scale-space families (BRISK/ORB/AKAZE/SIFT) through the facade
+        kp = iu.det_keypoints(img, vc.detector_type, vc)
+        pts, pts_mask, resp, kp_oct, kp_ang = kp
     if vc.keypoint_nms:
         pts_mask = image_ops.bucket_nms(pts, pts_mask, resp, vc)
 
@@ -181,12 +181,22 @@ def vo_step(state: VoState, img: torch.Tensor, K: torch.Tensor, cfg: VloamConfig
         desc, desc_mask = state.prev_desc, state.prev_desc_mask    # unused in this mode
     else:
         # Descriptor mode (the reference default): describe the current
-        # corners, match the previous frame's descriptors against them.
-        desc, desc_mask = orb.orb_descriptors(img, pts, pts_mask, vc,
-                                              rotate=(vc.descriptor_type == "orb"))
-        midx, track_ok = orb.match_descriptors(state.prev_desc, state.prev_desc_mask, desc,
-                                               desc_mask, ratio=vc.match_ratio,
-                                               select=vc.match_select)
+        # keypoints, match the previous frame's descriptors against them;
+        # ORB/BRIEF with the brute-force matcher inline, the rest through
+        # the facade.
+        if vc.descriptor_type in ("orb", "brief") and vc.matcher_type == "bf":
+            desc, desc_mask = orb.orb_descriptors(img, pts, pts_mask, vc,
+                                                  rotate=(vc.descriptor_type == "orb"))
+            midx, track_ok = orb.match_descriptors(state.prev_desc, state.prev_desc_mask, desc,
+                                                   desc_mask, ratio=vc.match_ratio,
+                                                   select=vc.match_select)
+        else:
+            kp = (iu.single_scale(pts, pts_mask, resp) if kp_oct is None
+                  else iu.Keypoints(pts, pts_mask, resp, kp_oct, kp_ang))
+            desc, desc_mask = iu.desc_keypoints(img, kp, vc.descriptor_type, vc)
+            midx, track_ok = iu.match(state.prev_desc, state.prev_desc_mask, desc, desc_mask,
+                                      matcher_type=vc.matcher_type, select=vc.match_select,
+                                      ratio=vc.match_ratio)
         curr_pts = pts[midx]
     track_ok = track_ok & (count > 0)
 

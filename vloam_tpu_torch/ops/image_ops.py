@@ -103,6 +103,33 @@ def fast_response(img: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
     return torch.where(is_corner, excess, 0.0)
 
 
+def border_mask(H: int, W: int, b: int, device) -> torch.Tensor:
+    """(H, W) mask of the pixels at least ``b`` from every edge."""
+    yy = torch.arange(H, device=device)[:, None]
+    xx = torch.arange(W, device=device)[None, :]
+    return (yy >= b) & (yy < H - b) & (xx >= b) & (xx < W - b)
+
+
+def neighbour_max(x: torch.Tensor) -> torch.Tensor:
+    """Maximum over the 8 neighbours in the last two dims (the centre pixel
+    excluded), wrapping at the edges as the reference's rolls do."""
+    mx = torch.full_like(x, -torch.inf)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                mx = torch.maximum(mx, torch.roll(x, (dy, dx), (-2, -1)))
+    return mx
+
+
+def top_k(x: torch.Tensor, k: int):
+    """The ``k`` largest entries of a 1-D ``x`` and their indices, exactly and
+    in ``lax.top_k``'s order: descending, ties to the lower index (a stable
+    sort; ``torch.topk`` promises no order among equal values).  This is the
+    reference's ``approx_max_k`` on the CPU, where it is exact."""
+    top, idx = torch.sort(x, descending=True, stable=True)
+    return top[:k], idx[:k]
+
+
 def detect_corners(img: torch.Tensor, cfg: VisualConfig):
     """Corners -> (pts (max_corners, 2) xy, mask, response).
     ``cfg.detector_type``: "shitomasi" (the reference's goodFeaturesToTrack)
@@ -115,7 +142,6 @@ def detect_corners(img: torch.Tensor, cfg: VisualConfig):
     else:
         raise ValueError(f"unsupported detector_type={cfg.detector_type!r} (shitomasi|fast)")
     H, W = resp.shape
-    dev = resp.device
 
     # local-max suppression over a (2r+1)^2 window, r from minDistance (the
     # reference's separable shift-max with -inf padding is this max pool)
@@ -127,15 +153,9 @@ def detect_corners(img: torch.Tensor, cfg: VisualConfig):
         is_peak = (resp >= local_max) & (resp > 0.0)
 
     # safety border (gradients and windows are invalid at the edges)
-    b = cfg.block_size
-    yy = torch.arange(H, device=dev)[:, None]
-    xx = torch.arange(W, device=dev)[None, :]
-    is_peak = is_peak & (yy >= b) & (yy < H - b) & (xx >= b) & (xx < W - b)
+    is_peak = is_peak & border_mask(H, W, cfg.block_size, resp.device)
 
-    score = torch.where(is_peak, resp, NEG_BIG).reshape(-1)
-    # exact top-k with ties to the lower index (lax.top_k's order)
-    top, idx = torch.sort(score, descending=True, stable=True)
-    top, idx = top[:cfg.max_corners], idx[:cfg.max_corners]
+    top, idx = top_k(torch.where(is_peak, resp, NEG_BIG).reshape(-1), cfg.max_corners)
     pts = torch.stack([(idx % W).to(torch.float32), (idx // W).to(torch.float32)], dim=-1)
     return pts, top > NEG_BIG, top
 
@@ -184,6 +204,20 @@ def _tent_weights(x: torch.Tensor, P: int) -> torch.Tensor:
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def sample_taps(flat: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(N, M) values, (N, K * 4) indices of four taps a sample into them and
+    (N, K, 4) bf16-rounded weights -> (N, K) samples: the sum of the four
+    products of the bf16-rounded values and the weights, in f32.
+
+    This is the reference's product with a dense bank of rows of four
+    non-zero weights (bf16 operands, f32 accumulation: brisk.py:285-289,
+    sift.py:271-275, akaze.py:272-276) without the bank: the other terms
+    add exact zeros and a product of two bf16 values is exact in f32, so
+    only the order of the four additions may differ from the reference's."""
+    taps = _bf16(torch.gather(flat, 1, idx)).reshape(w.shape) * w
+    return ((taps[..., 0] + taps[..., 1]) + taps[..., 2]) + taps[..., 3]
 
 
 def _sample_windows(patch: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:

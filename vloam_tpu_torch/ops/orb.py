@@ -8,7 +8,10 @@
   * descriptor: 256 comparisons of smoothed-image taps on a seeded Gaussian
     BRIEF pattern, packed into 8 words of 32 bits;
   * matching: XOR and popcount over all pairs, then 2-NN with Lowe's ratio
-    test or mutual nearest neighbours.
+    test or mutual nearest neighbours; or the FLANN stand-in
+    (``match_descriptors_approx``, ``matcher_type="flann"``): a seeded
+    subset of words prefilters candidates, the full width re-ranks them.
+    The matchers serve every binary family (BRISK, FREAK and AKAZE too).
 
 Descriptor words are **int32 holding the reference's uint32 bit patterns**
 (bit 31 is the sign bit): PyTorch has little arithmetic on ``uint32``.
@@ -120,35 +123,29 @@ def orb_descriptors(img: torch.Tensor, pts: torch.Tensor, mask: torch.Tensor,
         abin = torch.zeros((pts.shape[0],), dtype=torch.int64, device=img.device)
 
     bits = _descriptor_bits(patches.reshape(patches.shape[0], -1), abin)
-    words = bits.reshape(-1, 8, 32)
+    return pack_bits(bits), mask & inside
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(N, 32 * n_words) bool -> (N, n_words) int32 words, bit b of a word
+    from column 32 * word + b (the reference's ``_pack_bits``)."""
+    words = bits.reshape(bits.shape[0], -1, 32)
     # the signed weights of a word's set bits add up inside the int32 range
-    desc = torch.sum(torch.where(words, k["weights"], 0), dim=-1).to(torch.int32)
-    return desc, mask & inside
+    return torch.sum(torch.where(words, _consts(bits.device)["weights"], 0),
+                     dim=-1).to(torch.int32)
 
 
-def _descriptor_bits(flat: torch.Tensor, abin: torch.Tensor,
-                     use_matmul: bool = False) -> torch.Tensor:
-    """Pattern comparisons on flattened patches: (N, 256) bits.
-
-    Two formulations with identical results (exact f32, the same integer
-    taps): the tap gather (default, as the reference picks off the TPU) and
-    one product against the (30 * 256, 1024) matrix of +-1 tap differences,
-    each keypoint then selecting its angle bin's row block.  The product is
-    a plain ``torch.matmul`` in full f32 (each output is one tap minus
-    another, exact whatever the order of the zero terms)."""
+def _descriptor_bits(flat: torch.Tensor, abin: torch.Tensor) -> torch.Tensor:
+    """Pattern comparisons on flattened patches: (N, 256) bits, by gathering
+    each keypoint's angle bin's integer taps (exact f32, as the reference
+    computes them off the TPU).  The reference's TPU branch, one product
+    against the (30 * 256, 1024) matrix of +-1 tap differences, gives the
+    same bits and ran 30x slower on an H100 (chip_smoke.py phase 3)."""
     k = _consts(flat.device)
     abin = abin.to(torch.int64)
-    if not use_matmul:
-        idx1 = k["bank1"][abin]                              # (N, 256)
-        idx2 = k["bank2"][abin]
-        return torch.gather(flat, 1, idx1) < torch.gather(flat, 1, idx2)
-    pix = torch.arange(PATCH * PATCH, device=flat.device)
-    d2_oh = (pix[None, :] == k["bank2"].reshape(-1)[:, None]).to(torch.float32)
-    d1_oh = (pix[None, :] == k["bank1"].reshape(-1)[:, None]).to(torch.float32)
-    D = d2_oh - d1_oh                                        # (30 * 256, 1024)
-    diff_all = (flat @ D.T).reshape(-1, N_ANGLES, N_BITS)     # full f32: the package turns TF32 off
-    diff = torch.gather(diff_all, 1, abin[:, None, None].expand(-1, 1, N_BITS))[:, 0]
-    return diff > 0
+    idx1 = k["bank1"][abin]                                  # (N, 256)
+    idx2 = k["bank2"][abin]
+    return torch.gather(flat, 1, idx1) < torch.gather(flat, 1, idx2)
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -205,14 +202,21 @@ def match_descriptors(desc0, mask0, desc1, mask1, ratio: float = 0.8, select: st
     return idx, valid
 
 
+@functools.lru_cache(maxsize=None)
+def _probe_words(n_words: int, n_probe: int, seed: int, device: torch.device) -> torch.Tensor:
+    """The approximate matcher's seeded word subset on ``device``, uploaded
+    once (an upload per call would be a synchronising copy)."""
+    probe = np.sort(np.random.default_rng(seed).permutation(n_words)[:n_probe])
+    return torch.tensor(probe, device=device)
+
+
 def match_descriptors_approx(desc0, mask0, desc1, mask1, ratio: float = 0.8,
                              n_probe_words: int = 2, rerank: int = 8, seed: int = 0):
     """Approximate Hamming matcher (the reference's FLANN analogue): the
     distance on a seeded subset of ``n_probe_words`` words prefilters
     ``rerank`` candidates per query, the full-width distance re-ranks those."""
     W = desc0.shape[1]
-    probe = np.sort(np.random.default_rng(seed).permutation(W)[:n_probe_words])
-    p = torch.tensor(probe, device=desc0.device)
+    p = _probe_words(W, n_probe_words, seed, desc0.device)
     d_pre = _hamming(desc0[:, p], desc1[:, p])
     d_pre = torch.where(mask1[None, :], d_pre, MASKED)
     # the `rerank` smallest in lax.top_k's order: ties to the lower index

@@ -5,18 +5,19 @@ Replaces the reference's actionlib goal {date, seq, start_frame, end_frame}
 (vloam_main.action:1-10) + launch-file parameter surface with flags.
 
 It runs on the GPU unless ``--device cpu`` is given; without a GPU the
-default raises.  ``--descriptor-match`` runs VO on ORB (or ``--descriptor
-brief``) descriptors with the brute-force matcher.  ``--refine`` fuses the
-three chains in a pose graph when the run ends (``MO{d}_refined.txt``);
-``--loop-closure`` adds loop factors between revisited keyframes;
-``--exclude-unreliable`` keeps occluded and parallel-beam points out of the
-features.  ``--distortion`` undistorts the sweeps in LO, ``--clahe``
-equalises the images before detection, ``--detector fast`` detects FAST
-corners, ``--keypoint-nms`` thins them per bucket, and ``--debug-dir``
-with ``--debug-every`` dumps keypoint, flow and depth PNGs (for synthetic
-runs too).  Flags of features that are not ported yet (the scale-space
-detectors, the other descriptor families, ``--matcher flann``) are passed on
-and the module that would implement them raises ``NotImplementedError``.
+default raises.  ``--detector`` picks the keypoints VO tracks or matches:
+Shi-Tomasi (the default) or FAST corners, or the BRISK, ORB, AKAZE or SIFT
+detector.  ``--descriptor-match`` runs VO on descriptors instead of KLT:
+ORB (the default), BRIEF, BRISK, FREAK, AKAZE or SIFT (``--descriptor``),
+matched by brute force or by the approximate ``--matcher flann``.
+``--refine`` fuses the three chains in a pose graph when the run ends
+(``MO{d}_refined.txt``); ``--loop-closure`` adds loop factors between
+revisited keyframes; ``--exclude-unreliable`` keeps occluded and
+parallel-beam points out of the features.  ``--distortion`` undistorts the
+sweeps in LO, ``--clahe`` equalises the images before detection,
+``--keypoint-nms`` thins the keypoints per bucket, and ``--debug-dir`` with
+``--debug-every`` dumps keypoint, flow and depth PNGs (for synthetic runs
+too).
 
 Examples:
   # synthetic end-to-end smoke (no data needed)
@@ -24,6 +25,10 @@ Examples:
 
   # the same with VO matching ORB descriptors instead of tracking (KLT)
   python -m vloam_tpu_torch.runtime --dataset synthetic --frames 10 --descriptor-match
+
+  # SIFT keypoints and descriptors with the approximate (FLANN) matcher
+  python -m vloam_tpu_torch.runtime --dataset synthetic --frames 10 --descriptor-match \
+      --detector sift --descriptor sift --matcher flann
 
   # undistorted sweeps, CLAHE + FAST + keypoint NMS, debug PNGs every 5th frame
   python -m vloam_tpu_torch.runtime --dataset synthetic --frames 10 --distortion \
@@ -95,7 +100,7 @@ def main(argv=None) -> None:
     p.add_argument("--clahe", action="store_true", help="CLAHE pre-equalisation")
     p.add_argument("--keypoint-nms", action="store_true", help="bucketed keypoint NMS")
     p.add_argument("--descriptor-match", action="store_true",
-                   help="ORB descriptor matching instead of KLT (optical_flow_match=false)")
+                   help="descriptor matching instead of KLT (optical_flow_match=false)")
     p.add_argument("--detector", default="shitomasi",
                    choices=["shitomasi", "fast", "brisk", "orb", "akaze", "sift"])
     p.add_argument("--descriptor", default=None,

@@ -130,10 +130,12 @@ def make_inputs(device):
     return img_a, img_b, corners, imgs, meta
 
 
-def window_view(imgs):
-    """(..., H, W) -> (..., H-P+1, W-P+1, P, P): every (P, P) window, as a view."""
-    from vloam_tpu_torch.ops.gather_variants import P
+def window_view(imgs, P: int | None = None):
+    """(..., H, W) -> (..., H-P+1, W-P+1, P, P): every (P, P) window, as a
+    view (P: the tool's 32 unless given)."""
+    from vloam_tpu_torch.ops import gather_variants as gv
 
+    P = gv.P if P is None else P
     return imgs.unfold(-2, P, 1).unfold(-2, P, 1)
 
 
@@ -264,27 +266,31 @@ def host_origins(name, meta) -> tuple:
     return ids, cy, cx
 
 
-def window_floats(shape, ids, rows, cols) -> int:
-    """How many distinct floats of an (n_img, H, W) array the (32, 32)
-    windows at (ids, rows, cols) read: where windows overlap, or leave parts
-    of the images unread, this is not their count times 1024."""
-    from vloam_tpu_torch.ops.gather_variants import P
+def window_floats(shape, ids, rows, cols, P: int | None = None) -> int:
+    """How many distinct floats of an (n_img, H, W) array the (P, P) windows
+    (P: the tool's 32 unless given) at (ids, rows, cols) read: where windows
+    overlap, or leave parts of the images unread, this is not their count
+    times P * P."""
+    from vloam_tpu_torch.ops import gather_variants as gv
 
+    P = gv.P if P is None else P
     seen = np.zeros(tuple(shape), bool)
     for b, r, c in zip(ids, rows, cols):
         seen[b, r:r + P, c:c + P] = True
     return int(seen.sum())
 
 
-def patch_bytes(shape, corners, n_img: int = 1) -> int:
+def patch_bytes(shape, corners, n_img: int = 1, P: int | None = None) -> int:
     """What B2 must move for n_img images of ``shape`` (H, W) that share the
-    (n, 2) int32 (x, y) corners: every image float under a window read once
-    (the same floats of every image), the corners read once, the (n_img, n,
-    32, 32) windows written once.  The pair form is two such single calls."""
-    from vloam_tpu_torch.ops.gather_variants import P
+    (n, 2) int32 (x, y) corners: every image float under a (P, P) window (P:
+    the tool's 32 unless given) read once (the same floats of every image),
+    the corners read once, the (n_img, n, P, P) windows written once.  The
+    pair form is two such single calls."""
+    from vloam_tpu_torch.ops import gather_variants as gv
 
+    P = gv.P if P is None else P
     cx, cy = corners.cpu().numpy().astype(np.int64).T
-    floats = window_floats((1, *shape), np.zeros_like(cx), cy, cx)
+    floats = window_floats((1, *shape), np.zeros_like(cx), cy, cx, P)
     return 4 * (n_img * floats + corners.numel() + n_img * cx.size * P * P)
 
 
