@@ -128,6 +128,23 @@ Phases, each printed on its own lines:
    BRIEF), no more synchronising calls than phase 9, finite poses, MO within
    3 %; printed, not gated: the fewest matches (or tracks) a frame, the VO
    end error, ms/frame.
+15. the last modules: (a) the epipolar VO solvers on the card, on the KLT
+   tracks of phase 2's frame pair (1, 2) (N = 1024 slots, H = 256) and on a
+   two-view case of ``tests/test_epipolar.py``'s kind at N = 1024:
+   ``solve_ransac``'s samples equal to the NumPy threefry draw, its pose and
+   ``solve_nls_2d_only``'s held to the same functions on the CPU and to the
+   ground truth, ms (CUDA events) and synchronising calls a call; (b) the
+   map-sharded full step (``parallel/vloam_shard``) at S = 1 over NCCL (one
+   rank in this process, a file store) on phase 2's first 12 frames beside
+   the single-device step: outputs within 5e-3, map counts within
+   max(5, 0.5 %), the same B1-B4 launches a frame, ms and syncs a frame;
+   (c) S = 2 on the one card: NCCL's refusal of two ranks on one device
+   shown, then two spawned gloo ranks (CUDA tensors copied through host
+   memory) on the same frames: poses within 5e-3 of (b), rank-summed map
+   counts, each rank's block, the merge's bytes equal to
+   ``merge_payload_bytes``, phase 10's pose-graph factors split over the
+   two ranks within 2e-4 of the unsharded solve; ms a frame (a shared card
+   and a host transport, not a multi-GPU number).
 
 Phase 3 also holds the batched B3 (``solve_pose_gn_lidar_batched``, seven
 seeds of frame 15's LO solve) to its plain version, its batch of one to the
@@ -207,6 +224,24 @@ VALIDATION_FRAMES = 60  # the validation drive of phase 12 (tools/validate_drive
 DISTORTION_ON_TOL, DISTORTION_GAIN = 0.08, 0.5   # err_on < 0.08 m, err_on < 0.5 err_off
 DEBUG_FRAMES, DEBUG_EVERY = 10, 5
 MIN_TRACKS = 10          # vo_step solves only with >= 10 tracks (visual_odometry.py)
+# phase 15
+TRACK_FRAME = 2          # the frame whose KLT tracks (from frame 1) the epipolar solvers take
+N_HYPOTHESES = 256       # RANSAC's hypotheses (ops/epipolar.py)
+RANSAC_ROT_TOL, RANSAC_COS_MIN = 5e-3, 0.99   # tests/test_epipolar.py:44-48
+NLS_ROT_TOL, NLS_COS_MIN = 2e-3, 0.999        # tests/test_epipolar.py:98-101
+SHARD_TOL = 5e-3         # sharded vs single-device outputs (tests/test_vloam_sharded.py:63-69)
+PG_SHARD_TOL = 2e-4      # sharded vs unsharded pose-graph solve (tests/test_pose_graph.py:134)
+SHARD_TIMEOUT = 300.0    # s, rendezvous, collectives and the join of the spawned ranks
+# (b) and (c) start from the map lifted 24 m (wmap_wodom of frame 0): the ground lies in the
+# cube layer below the sensor's, whose slots rank 1 owns at S = 2; from the identity the
+# whole course lies in one layer, in rank 0's block (ROADMAP C-l)
+SHARD_LIFT = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, -24.0)
+# (b) and (c) and their references run with torch.use_deterministic_algorithms(True): with the
+# default algorithms two runs of the same step differ by millimetres (the float atomics of
+# voxel_downsample, ROADMAP C-b), which would hide what the sharding does to the outputs
+# the S = 2 ranks' outputs: replicated; the ulp of a coordinate at 24 m is 1.9e-6, so this is
+# ~50 ulp and 50x under SHARD_TOL
+RANKS_APART_TOL = 1e-4
 # phase 14: descriptor mode with (detector, descriptor, matcher) of
 # tests/test_vo_descriptor_modes.py:40-47 but ORB's (phase 9), then the ORB detector in KLT mode
 FAMILY_CASES = (("brisk", "brisk", "bf"), ("brisk", "freak", "bf"), ("akaze", "akaze", "bf"),
@@ -393,7 +428,8 @@ def main() -> int:
     del calls
     launches.update(check_variants(results, card))
     slice_syncs = check_slice(cfg, dframes[:N_SHORT], poses, card)
-    step_launches, per_frame, step_syncs = check_step(cfg, ext, dframes, poses, card, slice_syncs)
+    step_launches, per_frame, step_syncs, step_ms = check_step(cfg, ext, dframes, poses, card,
+                                                               slice_syncs)
     launches.update(step_launches)
     check_coupled(cfg, ext, dframes[:N_SHORT], poses, card)
     del dframes
@@ -406,7 +442,7 @@ def main() -> int:
     launches["gather_patches_single"], desc_syncs = check_descriptor_mode(cfg, ext, dframes, poses,
                                                                           card, step_syncs)
     del dframes
-    launches["gn_lidar_batched"] = check_close(cfg, card)
+    launches["gn_lidar_batched"], graph = check_close(cfg, card)
     check_raw_input(cfg, ext, raw, poses, card, per_frame, step_syncs)
     short = frames[:N_SHORT]
     del frames
@@ -416,6 +452,9 @@ def main() -> int:
                                                        desc_syncs)
     launches.update(family_launches)
     check_family_gathers(captured, results, card)
+    for name, n in check_last_modules(cfg, ext, short, poses, card, per_frame, step_syncs, step_ms,
+                                      graph).items():
+        launches[name] += n
     del short, raw, captured
     count_gn_kernels(gn_sites, card)
     count_gather_kernels(card)
@@ -888,7 +927,7 @@ def ring_scene(radius_course: float) -> np.ndarray:
 def check_close(cfg, card):
     """Phase 10: the close() epilogue on the ring course, driven the way
     tests/test_driver_loop_closure.py drives it.  Returns the batched B3's
-    launches in the run."""
+    launches in the run and the last pose-graph problem it solved."""
     from vloam_tpu_torch.data import synthetic
     from vloam_tpu_torch.models.frame_graph import kitti_default_extrinsics
     from vloam_tpu_torch.ops import fused_gn, fused_knn, knn
@@ -935,6 +974,13 @@ def check_close(cfg, card):
         arbiter_calls.append((args, kw))
         return knn.nn1(*args, **kw)
 
+    graph = {}   # the last pose-graph problem close() solved: (poses, chain, loop factors)
+    banded = drv.optimize_pose_graph_banded
+
+    def recorded_banded(poses, chain, loop, *args, **kw):
+        graph.update(poses=poses, chain=chain, loop=loop)
+        return banded(poses, chain, loop, *args, **kw)
+
     fused_knn.LAUNCHES = fused_gn.LAUNCHES = fused_gn.LAUNCHES_BATCHED = knn.LAUNCHES = 0
     driver = drv.VloamDriver(cfg, kitti_default_extrinsics("cuda"), loop_closure=True, **RING_KW)
     frame_ms = []
@@ -954,7 +1000,7 @@ def check_close(cfg, card):
             mock.patch.object(lc, "nn1", recorded_nn1), \
             mock.patch.object(drv, "register_loop", counted_register), \
             mock.patch.object(drv, "optimize_pose_graph_banded",
-                              timed_stage("pose_graph", drv.optimize_pose_graph_banded)):
+                              timed_stage("pose_graph", recorded_banded)):
         t = time.perf_counter()
         driver.close()
         close_s = time.perf_counter() - t
@@ -990,7 +1036,7 @@ def check_close(cfg, card):
     assert report["loop_factors"] >= 1, f"no loop factor accepted on the closed ring: {report}"
     assert ref_end <= raw_end, f"refined end error {ref_end} exceeds the raw one {raw_end}"
     del driver
-    return batched
+    return batched, graph
 
 
 def check_arbiter_nn1(arbiter_calls, card):
@@ -1487,7 +1533,7 @@ def check_step(cfg, ext, dframes, poses, card, slice_syncs):
           f"the slice alone: {slice_syncs.count}"
           + (f"; other warnings: {syncs.other}" if syncs.other else ""))
     del state
-    return launches, per_frame, syncs
+    return launches, per_frame, syncs, statistics.median(frame_ms[5:])
 
 
 def check_coupled(cfg, ext, dframes, poses, card):
@@ -2498,6 +2544,444 @@ def check_feature_families(cfg, ext, short, poses, card, step_per_frame, desc_sy
             launches["gather_patches_single_p24"] += patch_gather.LAUNCHES_SINGLE
         del dframes, vo_states, outs
     return launches, captured
+
+
+# ---- phase 15: the epipolar VO solvers and the map-sharded step -----------------------
+
+SHARD_OUTPUTS = ("vo_pose", "lo_pose", "mo_pose", "world_mo")
+
+
+def check_last_modules(cfg, ext, short, poses, card, step_per_frame, step_syncs, step_ms, graph):
+    """Phase 15: (a) the epipolar solvers, (b) the sharded step at S = 1 over
+    NCCL, (c) at S = 2 over gloo on the one card.  Returns the launches of
+    the sharded runs {counter: n} (both ranks' in (c))."""
+    from vloam_tpu_torch.models.vloam import frame_to_device
+
+    print(f"== phase 15: the epipolar VO solvers and the map-sharded step, kitti_hdl64, "
+          f"{len(short)} frames [{card}]")
+    dev = torch.device("cuda", 0)
+    dframes = [frame_to_device(*f, dev) for f in short]
+    t0 = time.perf_counter()
+    check_epipolar(cfg, ext, dframes, poses, card)
+    print(f"  (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    outs, counts, launches = check_shard_one(cfg, ext, dframes, card, step_per_frame, step_syncs,
+                                             step_ms)
+    print(f"  (b) {time.perf_counter() - t0:.1f} s")
+    del dframes
+    fresh_device(dev)
+    t0 = time.perf_counter()
+    for name, n in check_shard_two(cfg, short, card, outs, counts, step_per_frame, graph,
+                                   dev).items():
+        launches[name] += n
+    print(f"  (c) {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def two_view(rng, n, yaw, t, outliers):
+    """tests/test_epipolar.py's two views: a random scene seen from the
+    identity and from (R, t), a quarter of the matches gross outliers if
+    ``outliers``.  Returns (K, uv0, uv1, R, t) in float64."""
+    K = np.array([[718.0, 0, 607.0], [0, 718.0, 185.0], [0, 0, 1.0]])
+    X = np.stack([rng.uniform(-15, 15, n), rng.uniform(-3, 3, n), rng.uniform(6, 40, n)], -1)
+    c, s = np.cos(yaw), np.sin(yaw)
+    R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    t = np.asarray(t, np.float64)
+    X1 = X @ R.T + t
+    uv0 = (X @ K.T)[:, :2] / (X @ K.T)[:, 2:3]
+    uv1 = (X1 @ K.T)[:, :2] / (X1 @ K.T)[:, 2:3]
+    if outliers:
+        bad = rng.random(n) < 0.25
+        uv1[bad] += rng.uniform(30, 80, (bad.sum(), 2))
+    return K, uv0, uv1, R, t
+
+
+def pose_errors(pose, R, t):
+    """(max rotation-matrix entry error, translation direction cosine) of a
+    pose against the rotation R and the translation direction t."""
+    from vloam_tpu_torch import geometry as geo
+
+    p = pose.detach().cpu().double()
+    rot = float(np.abs(geo.quat_to_matrix(p[:4]).numpy() - R).max())
+    est = p[4:].numpy()
+    return rot, float(est @ t / (np.linalg.norm(est) * np.linalg.norm(t)))
+
+
+def check_epipolar(cfg, ext, dframes, poses, card):
+    """Phase 15 (a): ``solve_ransac`` and ``solve_nls_2d_only`` on the card,
+    on the KLT tracks of frame TRACK_FRAME and on two-view cases."""
+    from vloam_tpu_torch import geometry as geo
+    from vloam_tpu_torch.models import frame_graph as fg
+    from vloam_tpu_torch.models.visual_odometry import solve_nls_2d_only, solve_ransac
+    from vloam_tpu_torch.models.vloam import init_vloam_state, vloam_step
+    from vloam_tpu_torch.ops import epipolar, image_ops, threefry
+
+    dev = dframes[0][0].device
+    name = "lk_track_fb" if cfg.visual.klt_fb_check else "lk_track"
+    real, tracks = getattr(image_ops, name), []
+
+    def recorded(prev_img, img, prev_pts, prev_mask, *args, **kw):
+        curr, ok = real(prev_img, img, prev_pts, prev_mask, *args, **kw)
+        tracks.append((prev_pts, curr, ok & prev_mask))
+        return curr, ok
+
+    state = init_vloam_state(cfg, dev)
+    with mock.patch.object(image_ops, name, recorded):
+        for img, g, m, bk, lf in dframes[:TRACK_FRAME + 1]:
+            state, _ = vloam_step(state, img, g, m, ext, cfg, pre_gridded=True, pre_buckets=bk,
+                                  pre_lf_table=lf)
+    del state
+    # ground truth: the camera's motion cam0_curr_T_cam0_last from the sensor's
+    R_rel, t_rel = gt_delta(poses, TRACK_FRAME)
+    f32 = dict(dtype=torch.float32)
+    gt = fg.lo_delta_to_cam0(geo.pose_from_qt(geo.matrix_to_quat(torch.tensor(R_rel, **f32)),
+                                              torch.tensor(t_rel, **f32)),
+                             fg.kitti_default_extrinsics("cpu")).double()
+    R_gt, t_gt = geo.quat_to_matrix(gt[:4]).numpy(), gt[4:].numpy()
+    rng = np.random.default_rng(0)
+    K2, a0, a1, R2, t2 = two_view(rng, 1024, 0.02, (0.7, 0.05, 0.1), outliers=True)
+    K3, b0, b1, R3, t3 = two_view(rng, 1024, 0.015, (0.8, 0.0, 0.05), outliers=False)
+    on = lambda x: torch.tensor(x, device=dev, **f32)  # noqa: E731
+    ones = torch.ones(1024, dtype=torch.bool, device=dev)
+    prev_pts, curr_pts, ok = tracks[TRACK_FRAME]
+    cases = [(f"KLT tracks of frame {TRACK_FRAME}", prev_pts, curr_pts, ok, ext.P_rect0[:, :3],
+              R_gt, t_gt, None),
+             ("two-view, 25 % outliers", on(a0), on(a1), ones, on(K2), R2, t2, None),
+             ("two-view, seeded NLS", on(b0), on(b1), ones, on(K3), R3, t3,
+              geo.pose_from_qt(geo.matrix_to_quat(on(R3)), on(t3 * 1.1)))]
+    for label, uv0, uv1, mask, K, R, t, seed in cases:
+        n_valid = int(mask.sum())
+        assert n_valid >= 8, f"{label}: {n_valid} valid matches"
+        # the samples: the NumPy threefry draw, selected on the host with a stable sort
+        keys = threefry.gumbel_keys(0, N_HYPOTHESES, mask.shape[0])
+        want = np.argsort(-np.where(mask.cpu().numpy()[None, :], keys, -1), axis=1,
+                          kind="stable")[:, :threefry.N_SAMPLE]
+        got = epipolar.ransac_samples(mask, N_HYPOTHESES, 0).cpu().numpy()
+        assert np.array_equal(got, want), f"{label}: RANSAC samples differ from the NumPy draw"
+        threefry._DEVICE_KEYS.clear()   # the first call below uploads its keys again
+        with SyncCounter() as cold:
+            pose, n_inl = solve_ransac(uv0, uv1, mask, K, N_HYPOTHESES)
+        with SyncCounter() as warm:
+            solve_ransac(uv0, uv1, mask, K, N_HYPOTHESES)
+        ms = time_ms(lambda: solve_ransac(uv0, uv1, mask, K, N_HYPOTHESES))
+        cpu_pose, cpu_n = solve_ransac(uv0.cpu(), uv1.cpu(), mask.cpu(), K.cpu(), N_HYPOTHESES)
+        cpu_R = geo.quat_to_matrix(cpu_pose[:4].double()).numpy()
+        vs_cpu = pose_errors(pose, cpu_R, cpu_pose[4:].double().numpy())
+        vs_gt = pose_errors(pose, R, t)
+        print(f"  {label}: {n_valid} valid matches, RANSAC samples ({N_HYPOTHESES}, 8) equal to the "
+              f"NumPy threefry draw; solve_ransac {int(n_inl)} inliers (CPU {int(cpu_n)}), "
+              f"rotation {vs_cpu[0]:.2e} / direction cos {vs_cpu[1]:.6f} from the CPU's pose, "
+              f"{vs_gt[0]:.2e} / {vs_gt[1]:.6f} from the ground truth; {ms:.3f} ms a call "
+              f"(CUDA events, median of {TIMING_RUNS}); synchronising calls a call: {warm.count} "
+              f"({', '.join(warm.sites)}), {cold.count} on the call that uploads the keys [{card}]")
+        assert vs_cpu[0] <= RANSAC_ROT_TOL and vs_cpu[1] >= RANSAC_COS_MIN, f"{label}: card vs CPU"
+        assert vs_gt[0] <= RANSAC_ROT_TOL and vs_gt[1] >= RANSAC_COS_MIN, f"{label}: vs ground truth"
+        if label.startswith("two-view, 25"):
+            continue   # the 2D-only NLS has no outlier gate but Huber's: run where its test runs it
+        nls_seed = pose if seed is None else seed
+        with SyncCounter() as nls_syncs:
+            nls = solve_nls_2d_only(uv0, uv1, mask, K, cfg, nls_seed)
+        nls_ms = time_ms(lambda: solve_nls_2d_only(uv0, uv1, mask, K, cfg, nls_seed))
+        cpu_nls = solve_nls_2d_only(uv0.cpu(), uv1.cpu(), mask.cpu(), K.cpu(), cfg, nls_seed.cpu())
+        n_cpu = pose_errors(nls, geo.quat_to_matrix(cpu_nls[:4].double()).numpy(),
+                            cpu_nls[4:].double().numpy())
+        n_gt = pose_errors(nls, R, t)
+        print(f"    solve_nls_2d_only from {'the RANSAC pose' if seed is None else 'near the truth'}: "
+              f"rotation {n_cpu[0]:.2e} / direction cos {n_cpu[1]:.6f} from the CPU's pose, "
+              f"{n_gt[0]:.2e} / {n_gt[1]:.6f} from the ground truth; {nls_ms:.3f} ms a call; "
+              f"synchronising calls a call: {nls_syncs.count} [{card}]")
+        assert n_cpu[0] <= NLS_ROT_TOL and n_cpu[1] >= NLS_COS_MIN, f"{label}: NLS card vs CPU"
+        if seed is not None:
+            assert n_gt[0] <= NLS_ROT_TOL and n_gt[1] >= NLS_COS_MIN, f"{label}: NLS vs truth"
+
+
+def count_tol(n: int) -> int:
+    return max(5, n // 200)
+
+
+def lifted_state(cfg, dev, n_map_shards=1):
+    """``init_vloam_state`` with the map lifted by ``SHARD_LIFT``."""
+    from vloam_tpu_torch.models.vloam import init_vloam_state
+
+    state = init_vloam_state(cfg, dev, n_map_shards=n_map_shards)
+    lift = torch.tensor(SHARD_LIFT, dtype=torch.float32, device=dev)
+    return state._replace(mp=state.mp._replace(wmap_wodom=lift))
+
+
+def check_shard_one(cfg, ext, dframes, card, step_per_frame, step_syncs, step_ms):
+    """Phase 15 (b): the sharded full step at S = 1 over NCCL, one rank in
+    this process, beside the single-device step on the same frames, both
+    from the lifted map with deterministic algorithms; then the single step
+    with the default algorithms, to show their run-to-run spread.  Returns
+    (the sharded outputs on the host, its map counts, its launches)."""
+    from vloam_tpu_torch.models.vloam import vloam_step
+
+    dev = dframes[0][0].device
+    counters = launch_counters()
+
+    def single(s, f):
+        img, g, m, bk, lf = f
+        return vloam_step(s, img, g, m, ext, cfg, pre_gridded=True, pre_buckets=bk, pre_lf_table=lf)
+
+    fresh_device(dev)
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref_state, ref, ref_ms, ref_per, _ = drive(single, lifted_state(cfg, dev), dframes, counters)
+        ref_counts = (int(ref_state.mp.corner_cnt.sum()), int(ref_state.mp.surf_cnt.sum()))
+        del ref_state
+        fresh_device(dev)
+        outs, counts, launches, per, frame_ms, syncs, backend = shard_one_drive(
+            cfg, ext, dframes, counters)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _, free, _, _, _ = drive(single, lifted_state(cfg, dev), dframes, counters)
+    spread = max(float((getattr(o, k) - getattr(r, k)).abs().max())
+                 for o, r in zip(free, ref) for k in SHARD_OUTPUTS)
+    assert backend == "nccl", backend
+    assert per == ref_per, f"sharded launches a frame {per}, single-device {ref_per}"
+    for i in range(1, len(dframes)):
+        assert (per["knn_pair"][i], per["gn_lidar"][i]) == (4, 4), (i, per)
+    worst = max(float((getattr(o, k) - getattr(r, k)).abs().max())
+                for o, r in zip(outs, ref) for k in SHARD_OUTPUTS)
+    assert worst <= SHARD_TOL, f"S = 1 outputs {worst} from the single-device step's"
+    for got, want, what in zip(counts, ref_counts, ("corner", "surf")):
+        assert abs(got - want) <= count_tol(want), f"S = 1 {what} points {got}, single {want}"
+    print(f"  (b) S = 1 over NCCL (backend {backend}), {len(dframes)} frames from the map lifted "
+          f"{-SHARD_LIFT[6]:g} m, deterministic algorithms: {', '.join(SHARD_OUTPUTS)} within "
+          f"{worst:.2e} of the single-device step's in the same mode (bound {SHARD_TOL}); map "
+          f"{counts[0]} corner + {counts[1]} surf points, single-device {ref_counts[0]} + "
+          f"{ref_counts[1]}; launches a frame equal the single step's: "
+          f"{', '.join(f'{k} {v[:3]}...' for k, v in per.items())}")
+    print(f"    the single step with the default algorithms: {spread:.2e} from it (float atomics, "
+          f"ROADMAP C-b)")
+    print(f"    sharded {ms_line(frame_ms, 5, card)}")
+    print(f"    single-device step on the same frames, same mode: {ms_line(ref_ms, 5, card)}; "
+          f"phase 5's median (default algorithms) {step_ms:.3f} ms/frame")
+    print(f"    synchronising calls in frame {SYNC_FRAME}: {syncs.count} ({', '.join(syncs.sites)}); "
+          f"phase 5's step {step_syncs.count}")
+    host = [{k: getattr(o, k).cpu() for k in SHARD_OUTPUTS} for o in outs]
+    return host, counts, launches
+
+
+def shard_one_drive(cfg, ext, dframes, counters):
+    """The sharded full step at S = 1 over NCCL, one rank in this process,
+    from the lifted map: (outputs, map counts, launches, launches a frame,
+    ms a frame, the synchronising calls of SYNC_FRAME, the backend)."""
+    import datetime
+
+    import torch.distributed as dist
+    from vloam_tpu_torch.parallel import mesh as pmesh
+    from vloam_tpu_torch.parallel.vloam_shard import make_sharded_vloam_step, shard_vloam_state
+
+    dev = dframes[0][0].device
+    with tempfile.TemporaryDirectory() as tmp:
+        pmesh.init_distributed("nccl", f"file://{tmp}/store", 1, 0,
+                               timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
+        try:
+            mesh = pmesh.map_mesh(1, device=dev)
+            step = make_sharded_vloam_step(cfg, ext, mesh)
+
+            def sharded(s, f):
+                img, g, m, bk, lf = f
+                return step(s, img, g, m, pre_gridded=True, pre_buckets=bk, pre_lf_table=lf)
+
+            before = {name: get() for name, get in counters.items()}
+            state = shard_vloam_state(lifted_state(cfg, dev), mesh)
+            state, outs, frame_ms, per, syncs = drive(sharded, state, dframes, counters)
+            launches = {name: get() - before[name] for name, get in counters.items()}
+            counts = (int(state.mp.corner_cnt.sum()), int(state.mp.surf_cnt.sum()))
+            backend = dist.get_backend()
+            del state
+        finally:
+            dist.destroy_process_group()
+    return outs, counts, launches, per, frame_ms, syncs, backend
+
+
+def split_factors(factors, S):
+    """S blocks of the factors, the last padded with invalid ones."""
+    from vloam_tpu_torch.parallel.pose_graph import PoseGraphFactors
+
+    F = factors.i.shape[0]
+    n = -(-F // S)
+    pad = n * S - F
+    full = PoseGraphFactors(*(torch.cat([x, torch.zeros((pad,) + x.shape[1:], dtype=x.dtype,
+                                                        device=x.device)]) for x in factors))
+    return [PoseGraphFactors(*(x[r * n:(r + 1) * n].cpu() for x in full)) for r in range(S)]
+
+
+def check_shard_two(cfg, short, card, ref_outs, ref_counts, step_per_frame, graph, dev):
+    """Phase 15 (c): two ranks on the one card.  NCCL's answer to two ranks
+    on one device first, then the sharded step over gloo (CUDA tensors
+    copied through host memory) in two spawned processes, from the lifted
+    map with deterministic algorithms, as (b).  Returns both ranks'
+    launches."""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.models.laser_mapping import n_cubes
+    from vloam_tpu_torch.parallel.mapping_shard import merge_payload_bytes
+    from vloam_tpu_torch.parallel.mesh import run_ranks
+    from vloam_tpu_torch.parallel.pose_graph import concat_factors, optimize_pose_graph
+
+    S = 2
+    assert kernels.library_path().exists(), "phase 2 builds the kernels; the ranks only load them"
+    with tempfile.TemporaryDirectory() as tmp:
+        probe = os.path.join(tmp, "nccl")
+        os.makedirs(probe)
+        torch.save(dict(job="nccl_probe"), os.path.join(probe, "payload.pt"))
+        try:
+            run_ranks(shard_rank, S, args=(S, "nccl", probe), timeout=120.0)
+            notes = sorted({torch.load(os.path.join(probe, f"rank{r}.pt"), weights_only=False)
+                            for r in range(S)})
+        except Exception as e:  # noqa: BLE001  (a rank that died or hung is the answer too)
+            notes = [f"{type(e).__name__}: {str(e).strip().splitlines()[-1][:300]}"]
+        print(f"  (c) NCCL with two ranks on cuda:0: {' | '.join(notes)}")
+
+        loop = graph["loop"]
+        factors = graph["chain"] if loop is None else concat_factors(graph["chain"], loop)
+        pg_poses = graph["poses"].to(torch.float32)
+        run = os.path.join(tmp, "gloo")
+        os.makedirs(run)
+        torch.save(dict(job="vloam", cfg=cfg, frames=short, pg_poses=pg_poses.cpu(),
+                        pg_factors=split_factors(factors, S)), os.path.join(run, "payload.pt"))
+        t0 = time.perf_counter()
+        run_ranks(shard_rank, S, args=(S, "gloo", run), timeout=SHARD_TIMEOUT)
+        wall = time.perf_counter() - t0
+        res = [torch.load(os.path.join(run, f"rank{r}.pt"), weights_only=False) for r in range(S)]
+    mc = cfg.mapping
+    want_merge = mc.outer_iters * (merge_payload_bytes(S, mc.corner_stack_cap, mc.n_neighbors)
+                                   + merge_payload_bytes(S, mc.surf_stack_cap, mc.n_neighbors))
+    worst, ranks_apart, holding = 0.0, 0.0, 0
+    for r in res:
+        for i, (o, ref) in enumerate(zip(r["outs"], ref_outs)):
+            for k in SHARD_OUTPUTS:
+                worst = max(worst, float((o[k] - ref[k]).abs().max()))
+                ranks_apart = max(ranks_apart, float((o[k] - res[0]["outs"][i][k]).abs().max()))
+        per = {k: v for k, v in r["per_frame"].items()}
+        want_per = {k: v[:len(short)] for k, v in step_per_frame.items()}
+        assert per == want_per, f"rank launches a frame {per}, phase 5's {want_per}"
+        assert r["merge"][0] == 0 and all(b == want_merge for b in r["merge"][1:]), \
+            f"merge bytes a frame {r['merge']}, want {want_merge} from frame 1"
+        assert r["cube_rows"] == -(-n_cubes(cfg) // S) + 1, r["cube_rows"]
+        holding += sum(r["counts"]) > 0 and sum(r["window"]) > 0
+    assert worst <= SHARD_TOL, f"S = 2 outputs {worst} from (b)'s"
+    assert ranks_apart <= RANKS_APART_TOL, f"the ranks' outputs {ranks_apart} apart"
+    assert holding == S, (f"{holding} of the {S} ranks hold map points in their window: the "
+                          f"merge joined no candidates of another rank")
+    counts = [sum(r["counts"][j] for r in res) for j in range(2)]
+    for got, want, what in zip(counts, ref_counts, ("corner", "surf")):
+        assert abs(got - want) <= count_tol(want), f"S = 2 {what} points {got}, S = 1 {want}"
+    single_pg = optimize_pose_graph(pg_poses.to(dev), type(factors)(*(x.to(dev) for x in factors)),
+                                    iters=4).cpu()
+    pg_err = max(float((r["pg"] - single_pg).abs().max()) for r in res)
+    assert pg_err <= PG_SHARD_TOL, f"sharded pose graph {pg_err} from the unsharded solve"
+    ms = [statistics.median(r["ms"][5:]) for r in res]
+    print(f"  (c) S = 2 over gloo, both ranks on cuda:0, {len(short)} frames, the lifted map, "
+          f"deterministic algorithms: {', '.join(SHARD_OUTPUTS)} "
+          f"within {worst:.2e} of (b)'s (bound {SHARD_TOL}), ranks {ranks_apart:.2e} apart (bound "
+          f"{RANKS_APART_TOL}); {holding} of {S} ranks hold points in their window; map "
+          f"{counts[0]} corner + {counts[1]} surf points summed over the ranks, (b) {ref_counts[0]} + "
+          f"{ref_counts[1]}; launches a frame on each rank equal phase 5's")
+    for r, x in enumerate(res):
+        print(f"    rank {r}: cube array {x['cube_rows']} slots, {x['cube_bytes'] / 2**20:.0f} MiB "
+              f"(one rank's block; the unsharded map holds {n_cubes(cfg) + 1} slots), "
+              f"{x['counts'][0]} + {x['counts'][1]} points, window cache {x['window'][0]} + "
+              f"{x['window'][1]}; merge bytes a frame {x['merge'][1]} = "
+              f"merge_payload_bytes(2, M, {mc.n_neighbors}) x 2 feature types x {mc.outer_iters} "
+              f"outer iterations; gloo and CUDA tensors: {x['cuda_ops']}")
+    print(f"    phase 10's pose graph ({pg_poses.shape[0]} poses, {factors.i.shape[0]} factors) "
+          f"split over the 2 ranks: within {pg_err:.2e} of the unsharded solve (bound "
+          f"{PG_SHARD_TOL})")
+    print(f"    transport: gloo through host memory (every collective copies its CUDA tensors to "
+          f"the host and back); ms/frame median (frames 5..{len(short) - 1}, host clock, "
+          f"synchronised) rank 0 {ms[0]:.3f}, rank 1 {ms[1]:.3f}: two ranks sharing one card "
+          f"and a host transport, not a multi-GPU number; both ranks' run {wall:.1f} s with "
+          f"start-up [{card}]")
+    return {k: sum(sum(r["per_frame"][k]) for r in res) for k in res[0]["per_frame"]}
+
+
+def shard_rank(rank, S, backend, workdir):
+    """One rank of phase 15 (c), in a spawned process on cuda:0: joins the
+    process group through the file store in ``workdir``, runs the job of
+    ``workdir/payload.pt`` and writes ``workdir/rank<r>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+    from vloam_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    p = torch.load(os.path.join(workdir, "payload.pt"), weights_only=False)
+    pmesh.init_distributed(backend, f"file://{workdir}/store", S, rank,
+                           timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
+    if p["job"] == "nccl_probe":
+        try:
+            x = torch.ones(1, device=dev)
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            note = f"an all_reduce ran (sum {float(x)})"
+        except Exception as e:  # noqa: BLE001  (the refusal is what this job reports)
+            note = f"refused: {type(e).__name__}: {str(e).strip().splitlines()[0][:300]}"
+        torch.save(note, os.path.join(workdir, f"rank{rank}.pt"))
+        os._exit(0)   # leave the refused communicator to the process's end
+    try:
+        torch.save(shard_drive(S, dev, p), os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_drive(S, dev, p):
+    """The sharded full step on this rank over the payload's frames, then
+    this rank's block of the pose-graph factors."""
+    import torch.distributed as dist
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.models.frame_graph import kitti_default_extrinsics
+    from vloam_tpu_torch.models.vloam import frame_to_device
+    from vloam_tpu_torch.parallel import mapping_shard, mesh as pmesh
+    from vloam_tpu_torch.parallel.pose_graph import optimize_pose_graph
+    from vloam_tpu_torch.parallel.vloam_shard import make_sharded_vloam_step, shard_vloam_state
+
+    assert kernels.library_path().exists(), "the parent builds the kernels before the ranks start"
+    kernels.lib()
+    cfg = p["cfg"]
+    torch.use_deterministic_algorithms(True)   # as (b), whose outputs these are held to
+    mesh = pmesh.map_mesh(S, device=dev)
+    cuda_ops = {}
+    for name, op in (("all_reduce", lambda t: dist.all_reduce(t)),
+                     ("all_gather", lambda t: dist.all_gather([torch.empty_like(t)
+                                                               for _ in range(S)], t))):
+        try:
+            op(torch.ones(4, device=dev))
+            torch.cuda.synchronize()
+            cuda_ops[name] = "takes them"
+        except Exception as e:  # noqa: BLE001  (which collectives refuse is what is recorded)
+            cuda_ops[name] = f"refuses them ({type(e).__name__}: {str(e).strip().splitlines()[0][:80]})"
+    ext = kitti_default_extrinsics(dev)
+    frames = [frame_to_device(*f, dev) for f in p["frames"]]
+    state = shard_vloam_state(lifted_state(cfg, dev, n_map_shards=S), mesh)
+    torch.cuda.empty_cache()
+    step = make_sharded_vloam_step(cfg, ext, mesh)
+    counters = launch_counters()
+    per = {name: [] for name in counters}
+    merge, ms, outs = [], [], []
+    for img, g, m, bk, lf in frames:
+        before = {name: get() for name, get in counters.items()}
+        merged = mapping_shard.MERGE_BYTES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = step(state, img, g, m, pre_gridded=True, pre_buckets=bk, pre_lf_table=lf)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for name, get in counters.items():
+            per[name].append(get() - before[name])
+        merge.append(mapping_shard.MERGE_BYTES - merged)
+        outs.append({k: getattr(out, k).cpu() for k in SHARD_OUTPUTS})
+    mp = state.mp
+    factors = p["pg_factors"][mesh.rank]
+    pg = optimize_pose_graph(p["pg_poses"].to(dev), type(factors)(*(x.to(dev) for x in factors)),
+                             iters=4, group=mesh)
+    return dict(outs=outs, per_frame=per, merge=merge, ms=ms, cuda_ops=cuda_ops,
+                cube_rows=mp.cube_pts.shape[0], cube_bytes=mp.cube_pts.numel() * 4,
+                counts=(int(mp.corner_cnt.sum()), int(mp.surf_cnt.sum())),
+                window=(int(mp.sub_c_n.sum()), int(mp.sub_s_n.sum())), pg=pg.cpu())
 
 
 if __name__ == "__main__":

@@ -210,7 +210,9 @@ def test_port_never_imports_jax():
     CLI's ``main`` with --refine --loop-closure), the close() epilogue's
     modules (keyframe features, a loop registration, a banded pose-graph
     solve), the native host library's binding, the scenario worlds, the
-    raw-cloud step and the validation-drive tool loads no jax module."""
+    raw-cloud step, the validation-drive tool, the epipolar solvers (a RANSAC
+    solve) and the sharded step (two frames on a one-rank gloo mesh) loads
+    no jax module."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -277,6 +279,24 @@ def test_port_never_imports_jax():
         snake, snake_poses = stream.gen_frames(cfg, ext, 2, n_azimuth=200, snake=True, hard=True)
         rec = validate_drive.drive(cfg, ext, snake, snake_poses, hard=True)
         assert rec["mode"] == "hard_decoupled_D" and np.isfinite(rec["final_err_m"])
+        from vloam_tpu_torch.models import visual_odometry
+        from vloam_tpu_torch.ops import epipolar, threefry, vo_factors  # noqa: F401
+        from vloam_tpu_torch.parallel import mapping_shard, mesh, vloam_shard  # noqa: F401
+        uv = torch.rand(64, 2) * 500
+        K = torch.tensor([[718.0, 0, 607], [0, 718, 185], [0, 0, 1]])
+        rpose, _ = visual_odometry.solve_ransac(uv, uv + 1.0, torch.ones(64, dtype=torch.bool), K,
+                                                n_hypotheses=16)
+        assert torch.isfinite(rpose).all()
+        with tempfile.TemporaryDirectory() as tmp:
+            mesh.init_distributed("gloo", f"file://{tmp}/store", 1, 0)
+            mmesh = mesh.map_mesh(1, device="cpu")
+            sstep = vloam_shard.make_sharded_vloam_step(cfg, ext, mmesh)
+            sstate = vloam_shard.shard_vloam_state(vloam.init_vloam_state(cfg, "cpu"), mmesh)
+            for f in frames:
+                img, g, gm, bk, lf = vloam.frame_to_device(*f, "cpu")
+                sstate, sout = sstep(sstate, img, g, gm, pre_gridded=True, pre_buckets=bk,
+                                     pre_lf_table=lf)
+            assert all(np.isfinite(v.numpy()).all() for v in sout)
         C.kitti_hdl64 = lambda: cfg
         cli.main(["--device", "cpu", "--frames", "2", "--json"])
         cli.main(["--device", "cpu", "--frames", "3", "--json", "--refine", "--loop-closure"])

@@ -141,3 +141,33 @@ def test_loop_closure_reduces_drift(square):
     before = float(torch.linalg.vector_norm(poses[-1, 4:] - gt[-1, 4:]))
     after = float(torch.linalg.vector_norm(opt[-1, 4:] - gt[-1, 4:]))
     assert after < 0.15 * before and torch.isfinite(opt).all()
+
+
+@pytest.mark.parametrize("S", [2])
+def test_sharded_factors_match_single_device(S, tmp_path):
+    """The reference's sharded-factors check (tests/test_pose_graph.py) on
+    the port: the drifted square's odometry factors split over S gloo ranks
+    (padded with invalid factors, which weigh 0), JtJ and Jtr summed over the ranks, within
+    2e-4 of the unsharded solve on every rank."""
+    import torch_shard_ranks as ranks
+
+    _, _, noisy = _make_square()
+    poses = [tgeo.pose_identity()]
+    for d in torch.tensor(np.asarray(noisy)):
+        poses.append(tgeo.pose_compose(poses[-1], d))
+    poses = torch.stack(poses)
+    factors = tpg.odometry_factors(torch.tensor(np.asarray(noisy)))
+    single = tpg.optimize_pose_graph(poses, factors, iters=4)
+    F = factors.i.shape[0]
+    n = F // S + 1                     # S invalid factors pad the last block
+    pad = n * S - F
+
+    def padded(x):
+        return torch.cat([x, torch.zeros((pad,) + x.shape[1:], dtype=x.dtype)])
+
+    full = tpg.PoseGraphFactors(*(padded(x) for x in factors))
+    assert pad >= S and not bool(full.valid[F:].any())
+    blocks = [tpg.PoseGraphFactors(*(x[r * n:(r + 1) * n] for x in full)) for r in range(S)]
+    got = ranks.run_job(tmp_path, "pose_graph", S, dict(poses=poses, factors=blocks, iters=4))
+    for r in got:
+        np.testing.assert_allclose(r.numpy(), single.numpy(), atol=2e-4, rtol=0)

@@ -79,11 +79,18 @@ def n_cubes(cfg: VloamConfig) -> int:
     return mc.grid_w * mc.grid_h * mc.grid_d
 
 
-def init_map_state(cfg: VloamConfig, device) -> MapState:
-    """The single-device map (one shard)."""
+def init_map_state(cfg: VloamConfig, device, n_shards: int = 1) -> MapState:
+    """The map.  ``n_shards > 1`` pads the slot axis to a multiple of the
+    shard count, so each rank of a map mesh owns an equal block of slots
+    (pad slots hold the never-matching sentinel coordinate and are never
+    addressed), and lays the submap cache out as one block a shard: sub_c
+    and sub_s grow to (n_shards * cap, 4) and their valid-prefix counts
+    become (n_shards,) vectors (``parallel/mapping_shard``).  The scrap
+    slot stays last."""
     mc = cfg.mapping
-    nc = n_cubes(cfg)
+    nc = -(-n_cubes(cfg) // n_shards) * n_shards
     i64 = dict(dtype=torch.int64, device=device)
+    count_shape = (n_shards,) if n_shards > 1 else ()
     return MapState(
         cube_pts=torch.zeros((nc + 1, mc.corner_cube_cap + mc.surf_cube_cap, 4), device=device),
         corner_cnt=torch.zeros((nc,), **i64),
@@ -92,28 +99,40 @@ def init_map_state(cfg: VloamConfig, device) -> MapState:
         pose_map=geo.pose_identity(device),
         wmap_wodom=geo.pose_identity(device),
         initialized=False,
-        sub_c=torch.zeros((mc.submap_corner_cap, 4), device=device),
-        sub_c_n=torch.zeros((), **i64),
-        sub_s=torch.zeros((mc.submap_surf_cap, 4), device=device),
-        sub_s_n=torch.zeros((), **i64),
+        sub_c=torch.zeros((n_shards * mc.submap_corner_cap, 4), device=device),
+        sub_c_n=torch.zeros(count_shape, **i64),
+        sub_s=torch.zeros((n_shards * mc.submap_surf_cap, 4), device=device),
+        sub_s_n=torch.zeros(count_shape, **i64),
         sub_center=torch.full((3,), INT32_MIN, **i64),
     )
 
 
-def map_state_from_numpy(state, device) -> MapState:
-    """A reference single-shard ``MapState`` whose leaves are NumPy arrays ->
-    this port's state on ``device`` (the scrap slot is appended)."""
+def map_state_from_numpy(state, device, shard: tuple[int, int] | None = None) -> MapState:
+    """A reference ``MapState`` whose leaves are NumPy arrays -> this port's
+    state on ``device`` (the scrap slot is appended).  With ``shard=(r, S)``
+    the reference state is the global state of an S-shard mesh
+    (``init_map_state(cfg, n_shards=S)``) and the result is rank r's block:
+    slots [r * nc_local, (r + 1) * nc_local), cache block r, and the
+    replicated poses and centre."""
     f = lambda x: torch.tensor(np.asarray(x), device=device)  # noqa: E731
     i = lambda x: f(x).to(torch.int64)  # noqa: E731
-    cube = f(state.cube_pts)
+
+    def block(x):
+        if shard is None:
+            return x
+        r, S = shard
+        n = np.shape(x)[0] // S
+        return np.asarray(x)[r * n:(r + 1) * n]
+
+    cube = f(block(state.cube_pts))
     return MapState(
         cube_pts=torch.cat([cube, torch.zeros_like(cube[:1])]),
-        corner_cnt=i(state.corner_cnt), surf_cnt=i(state.surf_cnt),
-        cube_coord=i(state.cube_coord),
+        corner_cnt=i(block(state.corner_cnt)), surf_cnt=i(block(state.surf_cnt)),
+        cube_coord=i(block(state.cube_coord)),
         pose_map=f(state.pose_map), wmap_wodom=f(state.wmap_wodom),
         initialized=bool(np.asarray(state.initialized)),
-        sub_c=f(state.sub_c), sub_c_n=i(state.sub_c_n),
-        sub_s=f(state.sub_s), sub_s_n=i(state.sub_s_n),
+        sub_c=f(block(state.sub_c)), sub_c_n=i(block(state.sub_c_n)),
+        sub_s=f(block(state.sub_s)), sub_s_n=i(block(state.sub_s_n)),
         sub_center=i(state.sub_center),
     )
 
@@ -141,14 +160,27 @@ def _submap_coords(center_coord: torch.Tensor, cfg: VloamConfig) -> torch.Tensor
     return center_coord[None, :] + off
 
 
-def _gather_submap(state: MapState, coords: torch.Tensor, cfg: VloamConfig):
-    """Gather the neighbourhood cubes' points, compacted into dense buffers."""
+def _gather_submap(state: MapState, coords: torch.Tensor, cfg: VloamConfig, slot_offset=None):
+    """Gather the neighbourhood cubes' points, compacted into dense buffers.
+
+    A ``slot_offset`` (one shard of the sharded step) shifts the global slot
+    ids into this shard's block: cubes another shard owns gather nothing,
+    and their slot comes back as the scrap index n_cubes_local."""
     mc = cfg.mapping
     slots = coord_to_slot(coords, cfg)
-    fresh = torch.all(state.cube_coord[slots] == coords, dim=-1)
-    sub = state.cube_pts[slots]                              # (75, capT, 4)
-    c_counts = torch.where(fresh, state.corner_cnt[slots], 0)
-    s_counts = torch.where(fresh, state.surf_cnt[slots], 0)
+    if slot_offset is not None:
+        nc = state.corner_cnt.shape[0]
+        slots = slots - slot_offset
+        own = (slots >= 0) & (slots < nc)
+        slots = torch.where(own, slots, nc)
+        read = torch.clamp(slots, max=nc - 1)
+        fresh = torch.all(state.cube_coord[read] == coords, dim=-1) & own
+    else:
+        read = slots
+        fresh = torch.all(state.cube_coord[slots] == coords, dim=-1)
+    sub = state.cube_pts[read]                               # (75, capT, 4)
+    c_counts = torch.where(fresh, state.corner_cnt[read], 0)
+    s_counts = torch.where(fresh, state.surf_cnt[read], 0)
     c_pts, c_mask = compact_rows(sub[:, :mc.corner_cube_cap], c_counts, mc.submap_corner_cap)
     s_pts, s_mask = compact_rows(sub[:, mc.corner_cube_cap:], s_counts, mc.submap_surf_cap)
     return (c_pts, c_mask), (s_pts, s_mask), slots, fresh
@@ -218,10 +250,13 @@ def _surf_correspondences(pose, stack, stack_mask, cand, cand_mask, cfg,
 
 
 def _scatter_insert_pair(corner_w, c_mask, surf_w, s_mask,
-                         cube_pts, corner_cnt, surf_cnt, cube_coord, cfg):
+                         cube_pts, corner_cnt, surf_cnt, cube_coord, cfg, slot_offset=None):
     """Append both feature types' world points into their cube slots with
     one stable sort, one point scatter and one count pass.  Stale slots
-    (holding an evicted world cube) are reset first.
+    (holding an evicted world cube) are reset first.  A ``slot_offset`` (one
+    shard of the sharded step) shifts global slot ids into this shard's
+    block: points whose local slot falls outside [0, n_cubes_local) belong
+    to another shard and are dropped into the scrap slot (never wrapped).
 
     ``cube_pts`` is updated IN PLACE (rejects land in its scrap slot).
     Returns (corner_cnt, surf_cnt, cube_coord, accepted_corner, accepted_surf).
@@ -236,7 +271,11 @@ def _scatter_insert_pair(corner_w, c_mask, surf_w, s_mask,
     mask = torch.cat([c_mask, s_mask])
     is_surf = (torch.arange(n, device=dev) >= n_c).to(torch.int64)
     coord = cube_coord_of(pts[:, :3], mc.cube_size)
-    slot = torch.where(mask, coord_to_slot(coord, cfg), nc)  # invalid -> scrap index
+    slot = coord_to_slot(coord, cfg)
+    if slot_offset is not None:
+        slot = slot - slot_offset
+        mask = mask & (slot >= 0) & (slot < nc)
+    slot = torch.where(mask, slot, nc)                       # invalid -> scrap index
 
     # reset stale slots touched by this insertion
     stored = cube_coord[torch.clamp(slot, max=nc - 1)]
@@ -319,16 +358,25 @@ def _refilter_cubes(cube_pts, corner_cnt, surf_cnt, slots, cfg: VloamConfig):
 
 
 def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_mask,
-                 pose_wodom, cfg: VloamConfig):
+                 pose_wodom, cfg: VloamConfig, shard=None):
     """One mapping frame.  Returns (new_state, world pose after mapping).
     ``skip_frame`` is not read here: skipping frames is the caller's job
     (``models/vloam.vloam_step``).
 
     Host decisions per frame (each a device->host sync): whether the map
     holds enough points to register against, and on the insert-dedup path
-    whether the submap cache must be rebuilt."""
+    whether the submap cache must be rebuilt.
+
+    With a ``shard`` context (``parallel/mapping_shard.ShardContext``) this
+    is one rank of the sharded step: ``state`` is the rank's block, the
+    window and the insertion take the slots from ``shard.slot_offset`` on,
+    ``shard.centre`` makes the window centre the same on every rank,
+    ``shard.total`` sums the map's counts over the ranks and
+    ``shard.merge`` (nbr (M, k, 3), d2 (M, k)) -> the same, merged over the
+    ranks, runs after each search."""
     mc = cfg.mapping
     dev = pose_wodom.device
+    offset = None if shard is None else shard.slot_offset
 
     pose0 = geo.pose_compose(state.wmap_wodom, pose_wodom)
     corner_stack, cs_mask = voxel_downsample(
@@ -337,11 +385,16 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
         surf_in, surf_in_mask, mc.plane_resolution, mc.surf_stack_cap, max_grid=512)
 
     center = cube_coord_of(geo.pose_t(pose0)[None, :], mc.cube_size)[0]
+    if shard is not None:
+        # every rank takes one window, so the host decisions below are the
+        # same on every rank (float atomics may order a rank's sums
+        # otherwise, and a pose within rounding of a cube face would split them)
+        center = shard.centre(center)
     coords = _submap_coords(center, cfg)
 
     slots = None
     if not mc.insert_dedup or bool(torch.any(center != state.sub_center)):   # sync (dedup)
-        (c_pts, cm), (s_pts, sm), slots, _ = _gather_submap(state, coords, cfg)
+        (c_pts, cm), (s_pts, sm), slots, _ = _gather_submap(state, coords, cfg, offset)
         # the tail the dedup path appends frame by frame lies near the
         # current pose and needs no re-sort
         org = (center.to(torch.float32) * mc.cube_size)[None, :]
@@ -349,12 +402,14 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
         s_pts, sm = morton_sort(s_pts, sm, SUBMAP_MORTON_CELL, org)
         c_n, s_n = cm.sum(), sm.sum()
     else:
-        c_pts, c_n, s_pts, s_n = state.sub_c, state.sub_c_n, state.sub_s, state.sub_s_n
+        c_pts, s_pts = state.sub_c, state.sub_s
+        c_n, s_n = state.sub_c_n.reshape(()), state.sub_s_n.reshape(())
     c_mask = torch.arange(c_pts.shape[0], device=dev) < c_n
     s_mask = torch.arange(s_pts.shape[0], device=dev) < s_n
 
+    map_c, map_s = (c_n, s_n) if shard is None else shard.total(torch.stack([c_n, s_n])).unbind()
     cs_n, ss_n = cs_mask.sum(), ss_mask.sum()
-    if bool((c_n > mc.min_map_corner) & (s_n > mc.min_map_surf)):  # sync
+    if bool((map_c > mc.min_map_corner) & (map_s > mc.min_map_surf)):  # sync
         # The search radius covers both consumers of these distances: the
         # fits gate at neighbor_dist_sq, the insert gate below at r_dedup^2.
         r_dedup = mc.insert_dedup_factor * max(mc.line_resolution, mc.plane_resolution)
@@ -376,8 +431,11 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
                 prune_radius=(r_prune, r_prune),
             )
             d2c, idxc, d2s, idxs = d2c[back_c], idxc[back_c], d2s[back_s], idxs[back_s]
-            p_e, a_e, b_e, v_e = fit_corner_lines(corner_stack, cs_mask, c_pts[idxc, :3], d2c, cfg)
-            p_s, n_s, d_s, v_s = fit_surf_planes(surf_stack, ss_mask, s_pts[idxs, :3], d2s, cfg)
+            nbr_c, nbr_s = c_pts[idxc, :3], s_pts[idxs, :3]
+            if shard is not None:
+                (nbr_c, d2c), (nbr_s, d2s) = shard.merge(nbr_c, d2c), shard.merge(nbr_s, d2s)
+            p_e, a_e, b_e, v_e = fit_corner_lines(corner_stack, cs_mask, nbr_c, d2c, cfg)
+            p_s, n_s, d_s, v_s = fit_surf_planes(surf_stack, ss_mask, nbr_s, d2s, cfg)
             pose = solve_pose_gn_lidar(
                 pose, (p_e, a_e, b_e, v_e), (p_s, n_s, d_s, v_s),
                 mc.inner_iters, mc.huber_delta, mc.lm_lambda,
@@ -401,7 +459,7 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
         ins_s = ins_s & (nn_s > (mc.insert_dedup_factor * mc.plane_resolution) ** 2)
     c_cnt, s_cnt, cube_coord, acc_c, acc_s = _scatter_insert_pair(
         corner_w, ins_c, surf_w, ins_s,
-        state.cube_pts, state.corner_cnt, state.surf_cnt, state.cube_coord, cfg,
+        state.cube_pts, state.corner_cnt, state.surf_cnt, state.cube_coord, cfg, offset,
     )
 
     if mc.insert_dedup:
@@ -415,6 +473,7 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
 
         sub_c, sub_c_n = _append(c_pts, c_n, corner_w, acc_c & in_window(corner_w))
         sub_s, sub_s_n = _append(s_pts, s_n, surf_w, acc_s & in_window(surf_w))
+        sub_c_n, sub_s_n = sub_c_n.reshape(state.sub_c_n.shape), sub_s_n.reshape(state.sub_s_n.shape)
         sub_center = center
     else:
         # the reference's policy: re-voxelise the window; the cache stays as it was

@@ -24,6 +24,10 @@ select, so a VO frame reads nothing back from the device.
 Binary descriptors are int32 words holding the reference's uint32 bit
 patterns (see ``ops/orb``), in the state and in a checkpoint; SIFT's are
 float32.
+
+Beside the frame step, the reference's two other solvers, which no frame
+step calls: ``solve_nls_2d_only`` (epipolar residuals only, the generic GN)
+and ``solve_ransac`` (essential-matrix RANSAC and cheirality, ``ops/epipolar``).
 """
 
 from __future__ import annotations
@@ -36,11 +40,12 @@ import torch
 from vloam_tpu_torch import geometry as geo
 from vloam_tpu_torch import image_util as iu
 from vloam_tpu_torch.config import VloamConfig
-from vloam_tpu_torch.ops import image_ops, orb
+from vloam_tpu_torch.ops import image_ops, orb, vo_factors
 from vloam_tpu_torch.ops.clahe import clahe
 from vloam_tpu_torch.ops.depth_map import (DepthBuckets, bucket_shape, build_buckets,
                                            project_cloud, query_depth)
 from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_vo
+from vloam_tpu_torch.ops.gauss_newton import solve_pose_gn
 
 
 class VoState(NamedTuple):
@@ -232,3 +237,34 @@ def vo_step(state: VoState, img: torch.Tensor, K: torch.Tensor, cfg: VloamConfig
         count=count + 1,
     )
     return new_state, pose
+
+
+def solve_nls_2d_only(prev_pts: torch.Tensor, curr_pts: torch.Tensor, match_mask: torch.Tensor,
+                      K: torch.Tensor, cfg: VloamConfig,
+                      pose0: torch.Tensor | None = None) -> torch.Tensor:
+    """Epipolar-only GN solve, ``VisualOdometry::solveNls2dOnly``
+    (visual_odometry.h:61): every valid match of the (M, 2) pixel tracks
+    contributes only the 2D-2D epipolar residual (ceres_cost_function.h:
+    151-189), through the generic ``ops/gauss_newton.solve_pose_gn``.  The
+    translation's scale is unobservable; the pose keeps the seed's scale
+    (unit scale from the identity)."""
+    vc = cfg.visual
+    K_inv = inv3(K)
+    xb0, xb1 = _ray(K_inv, prev_pts), _ray(K_inv, curr_pts)
+    p0 = geo.pose_identity(prev_pts.device) if pose0 is None else pose0
+
+    def residuals(p):
+        return ((vo_factors.epipolar_22_residual(p, xb0, xb1), match_mask),)
+
+    return solve_pose_gn(residuals, p0, vc.max_iters, vc.huber_delta, vc.lm_lambda)
+
+
+def solve_ransac(prev_pts: torch.Tensor, curr_pts: torch.Tensor, match_mask: torch.Tensor,
+                 K: torch.Tensor, n_hypotheses: int = 256, thresh_px: float = 1.0,
+                 seed: int = 0):
+    """Essential-matrix RANSAC pose, ``VisualOdometry::solveRANSAC``
+    (visual_odometry.cpp:234-299).  Returns (pose (7,), n_inliers); the
+    translation is unit-norm, as with cv::recoverPose."""
+    from vloam_tpu_torch.ops.epipolar import solve_ransac_pose
+
+    return solve_ransac_pose(prev_pts, curr_pts, match_mask, K, n_hypotheses, thresh_px, seed)

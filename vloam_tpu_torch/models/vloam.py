@@ -15,7 +15,8 @@ host data layer builds the ring grid, the less-flat table and the depth
 buckets (``data/gridding`` or ``runtime/native``) and ``frame_to_device``
 moves them to the card; given a raw padded cloud (``pre_gridded=False``)
 or no buckets, the step builds them on the device with the same kernels
-launched.  The sharded mapping is not ported (ROADMAP A6b).
+launched.  ``parallel/vloam_shard`` runs this step with the map sharded
+over the ranks of a map mesh.
 """
 
 from __future__ import annotations
@@ -61,11 +62,14 @@ class VloamOutputs(NamedTuple):
     mo_correction: torch.Tensor  # (7,) wmap_T_wodom after this frame's mapping update
 
 
-def init_vloam_state(cfg: VloamConfig, device) -> VloamState:
+def init_vloam_state(cfg: VloamConfig, device, n_map_shards: int = 1) -> VloamState:
+    """The state of frame 0.  ``n_map_shards > 1`` lays the map out for a
+    map mesh of that many ranks (``init_map_state(..., n_shards=)``; each
+    rank keeps its block through ``parallel/vloam_shard.shard_vloam_state``)."""
     return VloamState(
         vo=init_vo_state(cfg, device),
         lo=init_lo_state(cfg, device),
-        mp=init_map_state(cfg, device),
+        mp=init_map_state(cfg, device, n_shards=n_map_shards),
         world_VOT_base=geo.pose_identity(device),
         cam0_curr_LOT_cam0_prev=geo.pose_identity(device),
         cam0_init_T_cam0_start=geo.pose_identity(device),
@@ -114,14 +118,18 @@ def frame_to_device(img, grid, gmask, buckets, lf_table, device):
 
 def vloam_step(state: VloamState, img, cloud, cloud_mask, ext: fg.Extrinsics, cfg: VloamConfig,
                pre_gridded: bool = False, pre_buckets: DepthBuckets | None = None,
-               pre_lf_table=None):
+               pre_lf_table=None, mapping_fn=None):
     """One frame.  ``cloud``/``cloud_mask`` are the host-built ring grid
     (R, C, 4) and its mask (``pre_gridded=True``), or a raw padded cloud
     (N, >=3) and its mask (``pre_gridded=False``: ``organize_scan`` grids
     it on the device and the less-flat cloud is reduced there, so
     ``pre_lf_table`` is not read).  ``pre_buckets`` and ``pre_lf_table``
     come from the host data layer; without ``pre_buckets`` VO builds the
-    depth buckets from the cloud.  Returns (new_state, VloamOutputs)."""
+    depth buckets from the cloud.  ``mapping_fn`` replaces the MO stage,
+    ``mapping_step``'s signature (``parallel/vloam_shard`` passes the sharded
+    step).  Returns (new_state, VloamOutputs)."""
+    if mapping_fn is None:
+        mapping_fn = mapping_step
     if pre_gridded:
         grid, gmask = cloud, cloud_mask
         flat_cloud, flat_mask = grid.reshape(-1, 4)[:, :3], gmask.reshape(-1)
@@ -157,7 +165,7 @@ def vloam_step(state: VloamState, img, cloud, cloud_mask, ext: fg.Extrinsics, cf
         mp_state = state.mp
         world_MOT_base = geo.pose_compose(state.mp.wmap_wodom, world_LOT_base)
     else:
-        mp_state, world_MOT_base = mapping_step(
+        mp_state, world_MOT_base = mapping_fn(
             state.mp, feats.less_sharp, feats.less_sharp_mask,
             feats.less_flat, feats.less_flat_mask, world_LOT_base, cfg,
         )

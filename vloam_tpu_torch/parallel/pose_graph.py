@@ -17,10 +17,10 @@ All factors' residuals and Jacobians come from one ``torch.func.vmap`` of
 
 Everything is float32, as in the reference, and no call checks its result on
 the host (``torch.linalg.solve_ex``), so nothing here waits for the device.
-Plain PyTorch: the reference computes this with no Pallas kernel.  The
-reference's ``axis_name`` (factors sharded over a device mesh, JtJ and Jtr
-summed across it) is not ported: it belongs to the multi-GPU port (ROADMAP
-A6b).
+Plain PyTorch: the reference computes this with no Pallas kernel.  With a
+map mesh (``optimize_pose_graph(..., group=)``), each rank evaluates its
+block of the factors and the normal equations are summed over the ranks,
+as the reference's ``axis_name`` does over a device mesh.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from vloam_tpu_torch import geometry as geo
+from vloam_tpu_torch.parallel.mesh import psum
 
 
 class PoseGraphFactors(NamedTuple):
@@ -92,8 +93,14 @@ def optimize_pose_graph(
     iters: int = 5,
     lm_lambda: float = 1e-5,
     huber_delta: float = 0.5,
+    group=None,
 ) -> torch.Tensor:
-    """GN/LM over the window; pose 0 is gauge-fixed with a strong prior."""
+    """GN/LM over the window; pose 0 is gauge-fixed with a strong prior.
+
+    ``group`` (a ``parallel.mesh.MapMesh``): ``factors`` is this rank's block
+    of the factors (padding factors invalid), and JtJ and Jtr are summed over
+    the ranks (one ``all_reduce`` an iteration), so every rank solves the
+    same system."""
     W = poses.shape[0]
     D = 6 * W
     fi, fj = factors.i.long(), factors.j.long()
@@ -109,6 +116,9 @@ def optimize_pose_graph(
         Jtr = torch.zeros((W, 6), dtype=poses.dtype, device=poses.device)
         Jtr.index_add_(0, fi, torch.einsum("fri,fr->fi", Ji, rf))
         Jtr.index_add_(0, fj, torch.einsum("fri,fr->fi", Jj, rf))
+        if group is not None:
+            both = psum(torch.cat([JtJ.reshape(-1), Jtr.reshape(-1)]), group)
+            JtJ, Jtr = both[:JtJ.numel()].reshape(JtJ.shape), both[JtJ.numel():].reshape(W, 6)
 
         A = JtJ.permute(0, 2, 1, 3).reshape(D, D)
         gauge = torch.zeros(D, dtype=poses.dtype, device=poses.device)
