@@ -136,15 +136,32 @@ Phases, each printed on its own lines:
    ground truth, ms (CUDA events) and synchronising calls a call; (b) the
    map-sharded full step (``parallel/vloam_shard``) at S = 1 over NCCL (one
    rank in this process, a file store) on phase 2's first 12 frames beside
-   the single-device step: outputs within 5e-3, map counts within
+   the single-device step: outputs within 1e-5, map counts within
    max(5, 0.5 %), the same B1-B4 launches a frame, ms and syncs a frame;
+   (c0) the property (c) rests on: ``knn_pair``'s kernel rebases to the box
+   of its masked rows, rows past the candidate count included (d2 and
+   indices bit-equal to the plain version with a window's and with a rank
+   slice's box past the count, near ties split between the two);
    (c) S = 2 on the one card: NCCL's refusal of two ranks on one device
    shown, then two spawned gloo ranks (CUDA tensors copied through host
-   memory) on the same frames: poses within 5e-3 of (b), rank-summed map
+   memory) on the same frames: poses within 1e-5 of (b) (every rank
+   rebases its searches to the whole window's centre), rank-summed map
    counts, each rank's block, the merge's bytes equal to
    ``merge_payload_bytes``, phase 10's pose-graph factors split over the
    two ranks within 2e-4 of the unsharded solve; ms a frame (a shared card
    and a host transport, not a multi-GPU number).
+16. the system-level drives through their tools' functions: ``ops/
+   cellhash``'s ``cell_knn`` on the street's map (8192 queries) against
+   the exact k-NN of the points its table kept, within the 1 m gate (the
+   table grown by two appends from an empty one equal to it), and
+   the ms of its two steps beside the brute search's; ``tools.loop_drive``
+   over two laps of a 160-frame ring (finite poses, at least one accepted
+   loop factor, the drift-scaled gate detecting at least what the fixed
+   one does, the refinement report; the raycast's, the frames' and
+   ``close()``'s seconds); ``tools.coupling_scenarios``' corridor (24
+   frames) and highway (40) in both modes (coupled wins in the corridor and
+   loses on the highway); each drive's launches counted from 0, every
+   kernel of its path launched.
 
 Phase 3 also holds the batched B3 (``solve_pose_gn_lidar_batched``, seven
 seeds of frame 15's LO solve) to its plain version, its batch of one to the
@@ -229,7 +246,13 @@ TRACK_FRAME = 2          # the frame whose KLT tracks (from frame 1) the epipola
 N_HYPOTHESES = 256       # RANSAC's hypotheses (ops/epipolar.py)
 RANSAC_ROT_TOL, RANSAC_COS_MIN = 5e-3, 0.99   # tests/test_epipolar.py:44-48
 NLS_ROT_TOL, NLS_COS_MIN = 2e-3, 0.999        # tests/test_epipolar.py:98-101
-SHARD_TOL = 5e-3         # sharded vs single-device outputs (tests/test_vloam_sharded.py:63-69)
+# sharded vs single-device outputs in deterministic mode, (b) against the single step and (c)
+# against (b): every rank rebases its searches to the whole window's centre, so the sharded step
+# searches, merges and fits what the single step does; on the card both read 0, and (c) read
+# 1.73e-3 when each rank rebased to its own slice's centre (tests/torch_shard_centre.py), so the
+# bound is 1e-5 where tests/test_vloam_sharded.py:63-69 allows 5e-3
+SHARD_TOL = 1e-5
+REBASE_QUERIES = 20000   # (c0): queries on the bisector of two candidates 24 m down
 PG_SHARD_TOL = 2e-4      # sharded vs unsharded pose-graph solve (tests/test_pose_graph.py:134)
 SHARD_TIMEOUT = 300.0    # s, rendezvous, collectives and the join of the spawned ranks
 # (b) and (c) start from the map lifted 24 m (wmap_wodom of frame 0): the ground lies in the
@@ -240,7 +263,7 @@ SHARD_LIFT = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, -24.0)
 # default algorithms two runs of the same step differ by millimetres (the float atomics of
 # voxel_downsample, ROADMAP C-b), which would hide what the sharding does to the outputs
 # the S = 2 ranks' outputs: replicated; the ulp of a coordinate at 24 m is 1.9e-6, so this is
-# ~50 ulp and 50x under SHARD_TOL
+# ~50 ulp
 RANKS_APART_TOL = 1e-4
 # phase 14: descriptor mode with (detector, descriptor, matcher) of
 # tests/test_vo_descriptor_modes.py:40-47 but ORB's (phase 9), then the ORB detector in KLT mode
@@ -256,6 +279,16 @@ CAPTURE_FRAME = 5        # the frame of the BRISK and SIFT drives whose B2 calls
 RING_FRAMES, RING_SPEED = 56, 1.1
 RING_KW = dict(keyframe_every=5, loop_radius=6.0, loop_min_travel=25.0, loop_drift_rate=0.02,
                loop_min_gap=3)
+
+# phase 16: tools/loop_drive cut from 1500 frames to two laps of 160 (a 16.6 m ring, each lap
+# 104 m, just past the 100 m a revisit must have travelled; the host raycast ~70 s); the
+# scenarios at tests/test_coupling_modes.py's
+# small-scale lengths; ops/cellhash at the sizes of its STATUS note (8192 queries, up to 49152
+# candidates of the street at the map's 0.4 m voxel, a 16k-bucket table of 16 a bucket)
+LOOP_FRAMES, LOOP_LAPS = 160, 2
+CORRIDOR_FRAMES, HIGHWAY_FRAMES = 24, 40
+CELL_QUERIES, CELL_CANDS, CELL_TABLE, CELL_CAP, CELL_K = 8192, 49152, 16384, 16, 5
+CELL_D2_RTOL, CELL_D2_ATOL = 1e-4, 1e-5     # tests/test_cellhash.py:41 (two difference forms)
 
 KERNELS = {   # name: (source under vloam_tpu_torch/csrc, the TPU kernel it replaces)
     "knn_pair": ("knn_pair.cu", "vloam_tpu/ops/pallas_knn.py:124"),
@@ -456,6 +489,8 @@ def main() -> int:
                                       graph).items():
         launches[name] += n
     del short, raw, captured
+    for name, n in check_drives(cfg, card).items():
+        launches[name] += n
     count_gn_kernels(gn_sites, card)
     count_gather_kernels(card)
 
@@ -2570,12 +2605,53 @@ def check_last_modules(cfg, ext, short, poses, card, step_per_frame, step_syncs,
     print(f"  (b) {time.perf_counter() - t0:.1f} s")
     del dframes
     fresh_device(dev)
+    check_rebase_rows(dev)
     t0 = time.perf_counter()
     for name, n in check_shard_two(cfg, short, card, outs, counts, step_per_frame, graph,
                                    dev).items():
         launches[name] += n
     print(f"  (c) {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def check_rebase_rows(dev):
+    """Phase 15 (c) rests on one property of ``knn_pair``'s kernel: it
+    rebases a problem to the centre of the box of its masked candidates,
+    rows at or past the candidate count included, and lets no such row
+    enter (``parallel/mapping_shard._window_box`` appends the window's box
+    there).  Two problems with the same two candidates 24 m below the origin
+    and queries on their bisector, one with a window's box corners past the
+    count, one with a rank slice's: the kernel's d2 and indices must equal
+    the plain version's bit for bit, and the two boxes must send some near
+    ties different ways (a kernel that ignored the rows past the count
+    would rebase both problems alike)."""
+    from vloam_tpu_torch.ops import fused_knn
+
+    rng = np.random.default_rng(3)
+    a = torch.tensor([[3.71, -1.32, -24.6]])
+    b = a + torch.tensor([[0.41, 0.23, -0.17]])
+    mid, axis = (a + b) / 2, (b - a) / torch.linalg.norm(b - a)
+    off = torch.tensor(rng.normal(0, 0.3, (REBASE_QUERIES, 3)), dtype=torch.float32)
+    q = mid + off - axis * (off * axis).sum(1, keepdim=True)
+    q = (q + axis * torch.tensor(rng.normal(0, 2e-6, (REBASE_QUERIES, 1)),
+                                 dtype=torch.float32)).to(dev)
+    window = torch.tensor([[-29.3717, -30.1291, -27.0443], [30.0107, 27.7703, -21.4977]])
+    own = torch.tensor([[-49.1, -12.2, -27.5], [8.3, 40.0, -24.3]])
+    cw, co = (torch.cat([a, b, box]).to(dev) for box in (window, own))
+    mask = torch.ones(4, dtype=torch.bool, device=dev)
+    args = (q, cw, mask, 5, q, co, mask, 5)
+    kw = dict(a_counts=(None, 2), b_counts=(None, 2))
+    got = fused_knn.knn_pair(*args, **kw)
+    want = fused_knn.knn_pair_reference(*args, **kw)
+    for (gd, gi), (wd, wi), box in zip(got, want, ("window", "own slice")):
+        assert torch.equal(gd, wd) and torch.equal(gi, wi), \
+            f"knn_pair with the {box}'s box past the count differs from its plain version"
+    flips = int((got[0][1][:, 0] != got[1][1][:, 0]).sum())
+    assert flips > 0, "the rows past the count did not move knn_pair's rebase centre"
+    print(f"  (c0) knn_pair rebases to its masked rows' box, rows past the count included: "
+          f"d2 and indices bit-equal to the plain version with a window's and a rank slice's "
+          f"box past the count; {flips} of {REBASE_QUERIES} near ties go the other way between "
+          f"the two centres")
 
 
 def two_view(rng, n, yaw, t, outliers):
@@ -2982,6 +3058,147 @@ def shard_drive(S, dev, p):
                 cube_rows=mp.cube_pts.shape[0], cube_bytes=mp.cube_pts.numel() * 4,
                 counts=(int(mp.corner_cnt.sum()), int(mp.surf_cnt.sum())),
                 window=(int(mp.sub_c_n.sum()), int(mp.sub_s_n.sum())), pg=pg.cpu())
+
+
+# ---- phase 16: the system-level drives and ops/cellhash ----------------------------------
+
+def drive_counters():
+    """Launch counters of every kernel the drives run."""
+    from vloam_tpu_torch.ops import fused_gn, knn
+
+    return {**launch_counters(), "gn_lidar_batched": lambda: fused_gn.LAUNCHES_BATCHED,
+            "knn": lambda: knn.LAUNCHES}
+
+
+def counted(fn):
+    """fn() and the launches it made {counter: n}."""
+    counters = drive_counters()
+    before = {name: get() for name, get in counters.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: get() - before[name] for name, get in counters.items()}
+
+
+def check_drives(cfg, card):
+    """Phase 16: ``ops/cellhash`` against the brute k-NN, the loop drive at
+    two laps, and the two coupling scenarios, each through its tool's
+    function on the card.  Returns the drives' launches {counter: n}."""
+    print(f"== phase 16: the system-level drives (tools.loop_drive, tools.coupling_scenarios) and "
+          f"ops.cellhash, kitti_hdl64 [{card}]")
+    t0 = time.perf_counter()
+    check_cellhash(card)
+    print(f"  cellhash {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = check_loop_drive(cfg, card)
+    print(f"  loop drive {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in check_scenarios(cfg, card).items():
+        launches[name] += n
+    print(f"  scenarios {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def check_cellhash(card):
+    """``cell_knn`` on a scan of the street against the exact k-NN
+    (``knn_reference``) of the points its table kept (a full bucket drops
+    the rest, by design) within the 1 m gate, and what its two steps and the
+    brute search cost on the card."""
+    from vloam_tpu_torch.data import synthetic
+    from vloam_tpu_torch.ops import cellhash, knn
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(8)
+    # a map of the street: four scans along phase 2's course in the world frame, one point a
+    # 0.4 m voxel (the map's plane resolution); the queries are other scan points, jittered
+    scans = [synthetic.simulate_scan(R, t, synthetic.default_scene(), n_azimuth=1800,
+                                     noise=0.005, seed=i) @ R.T + t
+             for i, (R, t) in enumerate(synthetic.straight_trajectory(
+                 40, speed=SPEED, yaw_rate=YAW_RATE)[::10])]
+    world = np.concatenate(scans)
+    _, first = np.unique(np.floor(world / 0.4).astype(np.int64), axis=0, return_index=True)
+    voxels = world[rng.permutation(first)[:CELL_CANDS]]
+    cand = torch.tensor(np.concatenate([voxels, np.ones((len(voxels), 1))], 1),
+                        dtype=torch.float32, device=dev)
+    q = torch.tensor(world[rng.integers(0, len(world), CELL_QUERIES)]
+                     + rng.normal(0, 0.05, (CELL_QUERIES, 3)), dtype=torch.float32, device=dev)
+    mask = torch.ones(cand.shape[0], dtype=torch.bool, device=dev)
+    tbl, cnt = cellhash.build_cell_table(cand, mask, 1.0, CELL_TABLE, CELL_CAP)
+    # the table grown in two appends, from an empty table on the card, is the one built at once
+    grown = cellhash.empty_cell_table(CELL_TABLE, CELL_CAP, dev), torch.zeros_like(cnt)
+    for part in (slice(0, cand.shape[0] // 2), slice(cand.shape[0] // 2, None)):
+        grown = cellhash.append_cell_table(*grown, cand[part], mask[part], 1.0)
+    assert torch.equal(grown[0], tbl) and torch.equal(grown[1], cnt), \
+        "append_cell_table from an empty table differs from build_cell_table"
+    d2, nbr = cellhash.cell_knn(q, tbl, 1.0, CELL_K)
+    rows = tbl.reshape(-1, 4)
+    kept = rows[rows[:, 0] < cellhash.SENTINEL, :3]
+    assert kept.shape[0] == int(cnt.sum())
+    ref, _ = knn.knn_reference(q, kept, torch.ones(kept.shape[0], dtype=torch.bool, device=dev),
+                               CELL_K)
+    inside = ref < 1.0
+    worst = float(((d2 - ref).abs() - CELL_D2_RTOL * ref)[inside].max())
+    close = d2 < 1.0
+    re = ((nbr - q[:, None, :]) ** 2).sum(-1)
+    worst_re = float(((re - d2).abs() - CELL_D2_RTOL * d2)[close].max())
+    ms = {"build_cell_table": time_ms(lambda: cellhash.build_cell_table(cand, mask, 1.0,
+                                                                        CELL_TABLE, CELL_CAP)),
+          "cell_knn": time_ms(lambda: cellhash.cell_knn(q, tbl, 1.0, CELL_K)),
+          "knn_reference (plain, exact)": time_ms(lambda: knn.knn_reference(q, cand[:, :3], mask,
+                                                                            CELL_K)),
+          "knn (B5 kernel)": time_ms(lambda: knn.knn(q, cand[:, :3], mask, CELL_K))}
+    print(f"  cell_knn ({CELL_QUERIES} queries, {cand.shape[0]} candidates, the street's map at "
+          f"0.4 m, table {CELL_TABLE} x {CELL_CAP}: {kept.shape[0]} kept, "
+          f"{cand.shape[0] - kept.shape[0]} dropped "
+          f"by full buckets, the same table when grown by two appends from an empty one; "
+          f"k={CELL_K}): {int(inside.sum())} of {inside.numel()} exact "
+          f"neighbours among the kept points lie inside the 1 m gate, each found (|d2 - exact| - "
+          f"{CELL_D2_RTOL} d2 at most {worst:.2e}, bound {CELL_D2_ATOL}); its neighbours "
+          f"reproduce their d2 (at most {worst_re:.2e}); ms a call (CUDA events, median of "
+          f"{TIMING_RUNS}): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" [{card}]")
+    assert int(inside.sum()) > CELL_QUERIES, "too few neighbours inside the gate to compare"
+    assert worst <= CELL_D2_ATOL, f"cell_knn misses a neighbour inside the gate: {worst}"
+    assert worst_re <= CELL_D2_ATOL, f"cell_knn's neighbours disagree with its d2: {worst_re}"
+
+
+def check_loop_drive(cfg, card):
+    """``tools.loop_drive.drive`` over two laps of a ring: finite poses, a
+    loop factor, the drift-scaled gate detecting at least what the fixed
+    one does, and the refinement report.  Returns its launches."""
+    from vloam_tpu_torch.tools import loop_drive
+
+    rec, launches = counted(lambda: loop_drive.drive(cfg, LOOP_FRAMES, LOOP_LAPS, device="cuda",
+                                                     verbose=False))
+    print(f"  loop drive, {LOOP_FRAMES} frames, {LOOP_LAPS} laps ({rec['path_len_m']} m): "
+          f"{json.dumps(rec)} [{card}]")
+    print(f"    seconds: raycast on the host {rec['frame_gen_s']}, driver frames "
+          f"{rec['process_s']}, close() {rec['close_s']}; launches {launches}")
+    report = rec["refine_report"]
+    finite = [rec[k] for k in ("raw_ate_m", "raw_final_err_m", "refined_ate_m",
+                               "refined_final_err_m")]
+    assert all(v is not None and np.isfinite(v) for v in finite), rec
+    assert report.get("loop_factors", 0) >= 1, f"no loop factor accepted: {report}"
+    assert rec["detections_drift_scaled_gate"] >= rec["detections_fixed_gate"], rec
+    for name in ("knn_pair", "gn_lidar", "gn_lidar_batched", "knn"):
+        assert launches[name] > 0, f"loop drive: {name} not launched"
+    return launches
+
+
+def check_scenarios(cfg, card):
+    """``tools.coupling_scenarios``' corridor and highway at the small-scale
+    contracts' lengths: coupled wins in the corridor and loses on the
+    highway.  Returns their launches."""
+    from vloam_tpu_torch.tools import coupling_scenarios as cs
+
+    res, launches = counted(lambda: {
+        "corridor": cs.corridor(cfg, CORRIDOR_FRAMES, device="cuda"),
+        "highway": cs.highway(cfg, HIGHWAY_FRAMES, device="cuda")})
+    print(f"  scenarios: {json.dumps(res)}; launches {launches} [{card}]")
+    cor, hwy = res["corridor"], res["highway"]
+    assert cor["coupled_C"]["final_err_m"] < cor["decoupled_D"]["final_err_m"], cor
+    assert hwy["coupled_C"]["final_err_pct"] > hwy["decoupled_D"]["final_err_pct"], hwy
+    for name in ("knn_pair", "gn_lidar", "gn_vo", "gather_patches"):
+        assert launches[name] > 0, f"scenarios: {name} not launched"
+    return launches
 
 
 if __name__ == "__main__":

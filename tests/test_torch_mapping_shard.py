@@ -12,6 +12,10 @@ thread, joined through a file store under the test's temporary directory.
   under ``shard_map`` on 4 and 3 of the 8 virtual CPU devices (JAX's
   butterfly orders ties by rank, so +inf slots may carry other rows); the
   bytes delivered equal ``merge_payload_bytes``.
+* The rebase centre: the plain k-NN at 24 m from the origin, rebased to two
+  centres, sends a near tie either way; rebased to the window's box
+  (``_window_box``, two gloo ranks), every rank's distances and the merged
+  top k are the single search's bit for bit.
 * ``make_sharded_step`` at S = 2, 3 and 4 against the port's single-device
   ``mapping_step`` over three frames at small caps: poses within 5e-3 (the
   bound of ``tests/test_parallel_mapping.py``) and, on the CPU, equal to
@@ -53,6 +57,7 @@ from vloam_tpu_torch import config as tconfig
 from vloam_tpu_torch.data import gridding, synthetic
 from vloam_tpu_torch.models import laser_mapping as tmap
 from vloam_tpu_torch.models.lidar_odometry import init_lo_state, lo_step
+from vloam_tpu_torch.ops.knn import knn_reference
 from vloam_tpu_torch.ops.scan_registration import extract_features_from_grid
 from vloam_tpu_torch.parallel import mapping_shard as tshard
 from vloam_tpu_torch.parallel import mesh as tmesh
@@ -248,6 +253,74 @@ def test_merge_topk_matches_global_topk_and_jax(S, tmp_path):
 def test_merge_payload_bytes_matches_reference():
     for S in (1, 2, 3, 4, 5, 8):
         assert tshard.merge_payload_bytes(S, 4096, 5) == jshard.merge_payload_bytes(S, 4096, 5)
+
+
+# ---- the rebase centre ------------------------------------------------------------
+
+def centred_nearest(query, cand, centre_rows):
+    """The plain k-NN's nearest of two candidates, rebased to the centre of
+    the box of ``cand`` and ``centre_rows`` (rows masked in past the count)."""
+    rows = torch.cat([cand, centre_rows])
+    mask = torch.ones(rows.shape[0], dtype=torch.bool)
+    return knn_reference(query, rows, mask, 1, cand_count=cand.shape[0])[1][:, 0]
+
+
+def test_rebase_centre_moves_near_ties():
+    """The mechanism behind the sharded step's rebase centre: one query set
+    straddling the bisector of two candidates 24 m below the origin, rebased
+    to the centre of a window's box (near the candidates) and to that of a
+    rank's slice (tens of metres off): a difference rebased to the far
+    centre lands in a coarser binade and is rounded, so near ties go the
+    other way on some queries."""
+    rng = np.random.default_rng(3)
+    a = torch.tensor([[3.71, -1.32, -24.6]])
+    b = a + torch.tensor([[0.41, 0.23, -0.17]])
+    mid, axis = (a + b) / 2, (b - a) / torch.linalg.norm(b - a)
+    off = torch.tensor(rng.normal(0, 0.3, (20000, 3)), dtype=torch.float32)
+    q = mid + off - axis * (off * axis).sum(1, keepdim=True)   # on the bisector plane, ...
+    q = q + axis * torch.tensor(rng.normal(0, 2e-6, (20000, 1)), dtype=torch.float32)  # ... near
+    cand = torch.cat([a, b])
+    window = torch.tensor([[-29.3717, -30.1291, -27.0443], [30.0107, 27.7703, -21.4977]])
+    own = torch.tensor([[-49.1, -12.2, -27.5], [8.3, 40.0, -24.3]])     # centre (-20.4, 13.9, ...)
+    flips = int((centred_nearest(q, cand, window) != centred_nearest(q, cand, own)).sum())
+    assert flips > 0
+
+
+def test_window_box_gives_every_rank_the_single_search(tmp_path):
+    """Two gloo ranks, each holding one slice of a window 24 m below the
+    origin (rank 1 the ground layer, as on the lifted map): rebased to the
+    window's box (``_window_box``), every rank's k-NN distances and the
+    merged top k equal the single search's bit for bit; rebased to a rank's
+    own box, some distances are rounded otherwise."""
+    rng = np.random.default_rng(4)
+    k, n = 5, 3000
+    cand = torch.tensor(np.stack([rng.uniform(-25, 25, n), rng.uniform(-25, 25, n),
+                                  rng.uniform(-27, -18, n)], -1), dtype=torch.float32)
+    query = cand[rng.integers(0, n, 700)] + torch.tensor(rng.normal(0, 0.4, (700, 3)),
+                                                         dtype=torch.float32)
+    ground = cand[:, 2] < -24.0
+    cap = int(max(ground.sum(), (~ground).sum())) + 7          # padded buffers, a count each
+    bufs, masks, counts = [], [], []
+    for part in (~ground, ground):
+        rows = cand[part]
+        bufs.append(torch.cat([rows, torch.full((cap - rows.shape[0], 3), 99.0)]))
+        masks.append(torch.arange(cap) < rows.shape[0])
+        counts.append(rows.shape[0])
+    got = ranks.run_job(tmp_path, "window_box", 2, dict(query=query, cand=bufs, mask=masks,
+                                                        count=counts, k=k))
+    d2, idx = knn_reference(query, cand, torch.ones(n, dtype=torch.bool), k)
+    want = torch.cat([cand[idx], d2[..., None]], dim=-1)
+
+    def merged(key):
+        packets = [torch.cat([bufs[r][got[r][key][1]], got[r][key][0][..., None]], dim=-1)
+                   for r in range(2)]
+        return tshard._topk_rows(torch.cat(packets, dim=1), k)
+
+    box = torch.stack([cand.amin(dim=0), cand.amax(dim=0)])
+    for r in got:
+        assert torch.equal(r["box"], box)
+    assert torch.equal(merged("window"), want)
+    assert not torch.equal(merged("own")[..., 3], want[..., 3])
 
 
 # ---- the sharded step ---------------------------------------------------------------

@@ -20,6 +20,7 @@ import torch.distributed as dist
 from vloam_tpu_torch.models.frame_graph import kitti_default_extrinsics
 from vloam_tpu_torch.models.laser_mapping import init_map_state
 from vloam_tpu_torch.models.vloam import frame_to_device, init_vloam_state
+from vloam_tpu_torch.ops.knn import knn_reference
 from vloam_tpu_torch.parallel import mapping_shard, mesh as pmesh
 from vloam_tpu_torch.parallel.pose_graph import optimize_pose_graph
 from vloam_tpu_torch.parallel.vloam_shard import make_sharded_vloam_step, shard_vloam_state
@@ -30,6 +31,16 @@ RANK_TIMEOUT = 300.0    # s, a whole job (spawn, rendezvous, work)
 def merge_job(mesh, p):
     nbr, d2 = mapping_shard._merge_topk(p["packets"][mesh.rank], p["k"], mesh)
     return dict(nbr=nbr, d2=d2, bytes=mapping_shard.MERGE_BYTES)
+
+
+def window_box_job(mesh, p):
+    """This rank's k-NN of ``p["query"]`` among its candidates, rebased to
+    its own box's centre and to the window's (``_window_box``)."""
+    cand, mask, n = p["cand"][mesh.rank], p["mask"][mesh.rank], p["count"][mesh.rank]
+    ((boxed, bmask),) = mapping_shard._window_box(((cand, mask),), mesh)
+    return dict(own=knn_reference(p["query"], cand, mask, p["k"], cand_count=n),
+                window=knn_reference(p["query"], boxed, bmask, p["k"], cand_count=n),
+                box=boxed[-2:])
 
 
 def mapping_job(mesh, p):
@@ -86,8 +97,8 @@ def pose_graph_job(mesh, p):
     return optimize_pose_graph(p["poses"], p["factors"][mesh.rank], iters=p["iters"], group=mesh)
 
 
-JOBS = {"merge": merge_job, "mapping": mapping_job, "vloam": vloam_job,
-        "vloam_raw": vloam_raw_job, "pose_graph": pose_graph_job,
+JOBS = {"merge": merge_job, "window_box": window_box_job, "mapping": mapping_job,
+        "vloam": vloam_job, "vloam_raw": vloam_raw_job, "pose_graph": pose_graph_job,
         "default_device": default_device_job}
 
 

@@ -371,9 +371,10 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
     is one rank of the sharded step: ``state`` is the rank's block, the
     window and the insertion take the slots from ``shard.slot_offset`` on,
     ``shard.centre`` makes the window centre the same on every rank,
-    ``shard.total`` sums the map's counts over the ranks and
-    ``shard.merge`` (nbr (M, k, 3), d2 (M, k)) -> the same, merged over the
-    ranks, runs after each search."""
+    ``shard.total`` sums the map's counts over the ranks,
+    ``shard.window_box`` gives the searches the whole window's rebase centre
+    and ``shard.merge`` (nbr (M, k, 3), d2 (M, k)) -> the same, merged over
+    the ranks, runs after each search."""
     mc = cfg.mapping
     dev = pose_wodom.device
     offset = None if shard is None else shard.slot_offset
@@ -422,11 +423,16 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
         order_s = morton_order(surf_stack, ss_mask, STACK_MORTON_CELL)
         sorted_c, sorted_s = corner_stack[order_c, :3], surf_stack[order_s, :3]
         back_c, back_s = torch.argsort(order_c), torch.argsort(order_s)
+        (c_cand, c_cmask), (s_cand, s_cmask) = (c_pts[:, :3], c_mask), (s_pts[:, :3], s_mask)
+        if shard is not None:
+            # every rank rebases to the whole window's centre, as the single step does
+            (c_cand, c_cmask), (s_cand, s_cmask) = shard.window_box((c_cand, c_cmask),
+                                                                    (s_cand, s_cmask))
         pose = pose0
         for _ in range(mc.outer_iters):
             (d2c, idxc), (d2s, idxs) = knn_pair(
-                geo.pose_apply(pose, sorted_c), c_pts[:, :3], c_mask, mc.n_neighbors,
-                geo.pose_apply(pose, sorted_s), s_pts[:, :3], s_mask, mc.n_neighbors,
+                geo.pose_apply(pose, sorted_c), c_cand, c_cmask, mc.n_neighbors,
+                geo.pose_apply(pose, sorted_s), s_cand, s_cmask, mc.n_neighbors,
                 a_counts=(cs_n, c_n), b_counts=(ss_n, s_n),
                 prune_radius=(r_prune, r_prune),
             )

@@ -6,8 +6,9 @@ tensors and uses the plain PyTorch version, ``knn_pair_reference``, for CPU
 tensors; it never falls back from one to the other.  Both return the same
 contract, which is exact (unlike the TPU kernel's lane-class approximation):
 
-* d2 in difference form after rebasing to the centre of the valid
-  candidates' bounding box, ties to the lower candidate index;
+* d2 in difference form after rebasing to the centre of the bounding box
+  of the masked candidates, those at or past the candidate count included,
+  ties to the lower candidate index;
 * masked candidates and candidates at or past the candidate count never
   enter; unfilled slots are d2 = +inf with index 0 (in range, so LO and MO
   may gather with it);

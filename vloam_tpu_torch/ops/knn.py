@@ -10,7 +10,8 @@ contract, which differs from the reference's ``knn`` on purpose, in three
 ways:
 
 * distances are in difference form, (qx-cx)^2 + (qy-cy)^2 + (qz-cz)^2, after
-  rebasing both sets to the centre of the valid candidates' bounding box
+  rebasing both sets to the centre of the masked candidates' bounding box
+  (rows at or past ``cand_count`` included)
   (the reference's CPU path uses the matmul form q^2 + c^2 - 2 q.c, which at
   +-60 m differs by ~1e-3 m^2 and can swap near-tied neighbours);
 * masked candidates and unfilled slots are +inf (the reference: 3.4e38, and

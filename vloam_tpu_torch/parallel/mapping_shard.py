@@ -18,6 +18,13 @@ and its submap searches split over S ranks.
   run on the rank's block.  Then the ranks merge their candidates into the
   global top 5 (``_merge_topk``), and the line and plane fits and the GN
   solve (``ops/fused_gn.solve_pose_gn_lidar``, B3) run replicated.
+* Every rank's search is rebased to the centre of the whole window's box,
+  the single-device search's centre (``_window_box``): the k-NN rebases to
+  the centre of its masked candidates' box, so a rank that rebased to the
+  centre of its own slice would round the differences of a pair otherwise,
+  and a near tie between two candidates could then go the other way than
+  in the single step.  With the shared centre a pair's d2 is the single
+  step's bit for bit.
 * The merge is a butterfly for power-of-two S: log2(S) rounds, each
   swapping an (M, k, 4) packet of neighbour [x y z d2] with rank ^ step and
   keeping the k nearest of the 2k.  Other S gather every rank's packet.
@@ -64,6 +71,7 @@ class ShardContext(NamedTuple):
     centre: Callable                  # (3,) window centre -> rank 0's, on every rank
     total: Callable                   # counts -> their sum over the ranks
     merge: Callable                   # (nbr (M, k, 3), d2 (M, k)) -> the global top k
+    window_box: Callable              # (cand, mask) problems -> the same with the window's box
 
 
 def shard_context(state: MapState, cfg: VloamConfig, mesh: MapMesh) -> ShardContext:
@@ -75,7 +83,24 @@ def shard_context(state: MapState, cfg: VloamConfig, mesh: MapMesh) -> ShardCont
 
     return ShardContext(slot_offset=axis_index(mesh) * state.corner_cnt.shape[0],
                         centre=lambda c: broadcast(c, mesh), total=lambda x: psum(x, mesh),
-                        merge=merge)
+                        merge=merge, window_box=lambda *p: _window_box(p, mesh))
+
+
+def _window_box(problems, mesh: MapMesh):
+    """Each k-NN problem's candidates ``(cand (N, 3), mask (N,))`` with two
+    rows appended: the lower and upper corners of the box of every rank's
+    masked rows (a minimum and a maximum over the ranks, exact), masked in.
+    The k-NN rebases to the centre of its masked rows' box, those past the
+    candidate count included, and never lets a row past the count enter: so
+    with the two rows at N and N + 1 and the count at most N, every rank
+    rebases to the whole window's centre and finds what it found before.
+    One all-gather for all the problems."""
+    lo = torch.stack([torch.where(m[:, None], c, torch.inf).amin(dim=0) for c, m in problems])
+    hi = torch.stack([torch.where(m[:, None], c, -torch.inf).amax(dim=0) for c, m in problems])
+    box = all_gather(torch.stack([lo, -hi]), mesh).amin(dim=0)        # (2, problems, 3)
+    return tuple((torch.cat([c, torch.stack([box[0, p], -box[1, p]]).to(c.dtype)]),
+                  torch.cat([m, m.new_ones(2)]))
+                 for p, (c, m) in enumerate(problems))
 
 
 def _local_window(state: MapState, coords, cfg: VloamConfig, mesh: MapMesh):
@@ -138,9 +163,10 @@ def sharded_mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, su
     rank of ``mesh``: ``state`` is this rank's block (``mesh.shard_map_state``),
     the feature clouds and the pose are the same on every rank.  It is
     ``mapping_step`` itself with the shard's slot offset, rank 0's window
-    centre, the counts summed over the ranks and ``_merge_topk`` after each
-    search.  Returns (new state block, world pose after mapping), the pose
-    the same on every rank up to the rounding of the card's float atomics."""
+    centre, the counts summed over the ranks, the searches rebased to the
+    whole window's box centre and ``_merge_topk`` after each search.
+    Returns (new state block, world pose after mapping), the pose the same
+    on every rank up to the rounding of the card's float atomics."""
     return mapping_step(state, corner_in, corner_in_mask, surf_in, surf_in_mask, pose_wodom, cfg,
                         shard=shard_context(state, cfg, mesh))
 

@@ -34,10 +34,19 @@ import time
 import numpy as np
 import torch
 
-from vloam_tpu_torch import geometry_np as gnp
+from vloam_tpu_torch import geometry as geo
 from vloam_tpu_torch.utils import kitti_eval
 
 STEADY_FROM = 4     # frames before the timed window (the first uses and the warm-up)
+
+
+def kitti_matrices(poses) -> np.ndarray:
+    """(N, 7) poses -> (N, 3, 4) float32 matrices, built in float32 as the
+    reference's tools build the matrices they score (the KITTI rotation
+    error is an arccos near 1, where float32 and float64 matrices of the
+    same pose differ by ~2e-4 deg/m)."""
+    p = torch.as_tensor(np.asarray(poses, np.float32))
+    return torch.cat([geo.quat_to_matrix(p[:, :4]), p[:, 4:, None]], dim=2).numpy()
 
 
 def mode_name(cfg, hard: bool) -> str:
@@ -71,7 +80,7 @@ def drive(cfg, ext, frames, poses, hard: bool = False, frame_gen_s: float | None
     n_timed = len(dframes) - STEADY_FROM
     mo = torch.stack(outs).cpu().numpy()
 
-    est = np.stack([gnp.pose_to_matrix(p)[:3] for p in mo])
+    est = kitti_matrices(mo)
     gt = np.stack([np.concatenate([R, t[:, None]], axis=1) for R, t in poses])
     res = kitti_eval.evaluate(gt, est)
     path_len = float(np.sum(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1)))
@@ -100,6 +109,23 @@ def drive(cfg, ext, frames, poses, hard: bool = False, frame_gen_s: float | None
     }
 
 
+def check_out(ap: argparse.ArgumentParser, out: str | None) -> None:
+    """Refuse an ``--out`` that names one of the reference package's records."""
+    if out and fnmatch.fnmatch(os.path.basename(out), "VALIDATION_r0*.json"):
+        ap.error(f"{out} is a record of the reference package; choose another file")
+
+
+def merge_record(path: str, entries: dict) -> None:
+    """Merge ``entries`` (record key -> record) into the JSON file ``path``."""
+    record = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            record = json.load(f)
+    record.update(entries)
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=300)
@@ -112,8 +138,7 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=None, help="merge the record into this JSON file")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.out and fnmatch.fnmatch(os.path.basename(args.out), "VALIDATION_r0*.json"):
-        ap.error(f"{args.out} is a record of the reference package; choose another file")
+    check_out(ap, args.out)
 
     from vloam_tpu_torch.config import kitti_hdl64
     from vloam_tpu_torch.data import stream
@@ -130,13 +155,7 @@ def main(argv=None) -> None:
     result = drive(cfg, ext, frames, poses, hard=args.hard,
                    frame_gen_s=time.perf_counter() - t0)
     if args.out:
-        record = {}
-        if os.path.exists(args.out):
-            with open(args.out) as f:
-                record = json.load(f)
-        record[result["mode"]] = result
-        with open(args.out, "w") as f:
-            json.dump(record, f, indent=1)
+        merge_record(args.out, {result["mode"]: result})
     print(json.dumps(result))
 
 
