@@ -198,7 +198,6 @@ def test_stage_timer_summary_format():
     lines = timer.summary().splitlines()
     assert [ln.split()[0] for ln in lines] == ["vloam_step", "host_grid"]
     assert lines[0].endswith("n=3") and " avg " in lines[0] and " max " in lines[0]
-    assert timer.mean_ms("vloam_step") >= 0.0 and timer.mean_ms("never") == 0.0
 
 
 # ---------------------------------------------------------------------------

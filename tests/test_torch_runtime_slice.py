@@ -100,7 +100,10 @@ def test_exported_rows_match_jax_driver(name, jax_run, port_run):
     assert np.abs(got - want).max() < ROW_TOL
     # the f64 host chain stays within f32 rounding of the step's own f32 chain
     assert max(port_run["driver"].f32_divergence_m.values()) < 1e-4
-    assert port_run["driver"].timer.count["vloam_step"] == N_FRAMES
+    counts = port_run["driver"].timer.count
+    assert counts["vloam_step"] == N_FRAMES
+    for layer in ("visual_odometry", "scan_registration", "laser_odometry", "laser_mapping"):
+        assert counts[layer] == N_FRAMES, layer   # each layer's span once a frame
 
 
 def test_restore_from_jax_driver_checkpoint(frames, jax_run, tmp_path):

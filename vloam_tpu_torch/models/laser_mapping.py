@@ -32,6 +32,10 @@ drops, so sorting them would change the map wherever a cube overflows.
 In place: the cube array (~477 MB at kitti_hdl64) is scattered into in
 place every frame and never copied; the small count and coordinate arrays
 and the submap caches are rebuilt out of place.
+
+Where the host waits for the card (the two host decisions of a frame, and
+two small copies to the card), the wait runs inside a ``wait.<site>`` span
+(``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from vloam_tpu_torch.ops.fused_knn import knn_pair
 from vloam_tpu_torch.ops.knn import compact_rows, knn, morton_order, morton_sort
 from vloam_tpu_torch.ops.linalg3 import eigh3x3_sym, solve3x3_sym
 from vloam_tpu_torch.ops.voxel import div_exact, voxel_downsample, voxel_downsample_batched
+from vloam_tpu_torch.utils.profiling import span
 
 INT32_MIN = -(2**31)
 STACK_MORTON_CELL = 2.0    # m, feature stacks (sensor frame)
@@ -145,7 +150,9 @@ def cube_coord_of(points: torch.Tensor, cube_size: float) -> torch.Tensor:
 def coord_to_slot(coord: torch.Tensor, cfg: VloamConfig) -> torch.Tensor:
     """Block-cyclic slot index for a world cube coordinate."""
     mc = cfg.mapping
-    dims = torch.tensor([mc.grid_w, mc.grid_h, mc.grid_d], dtype=torch.int64, device=coord.device)
+    with span("wait.slot_dims"):   # a copy to the card: waits for it
+        dims = torch.tensor([mc.grid_w, mc.grid_h, mc.grid_d], dtype=torch.int64,
+                            device=coord.device)
     m = torch.remainder(coord, dims)  # result in [0, dims)
     return m[..., 0] + mc.grid_w * m[..., 1] + mc.grid_w * mc.grid_h * m[..., 2]
 
@@ -393,8 +400,12 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
         center = shard.centre(center)
     coords = _submap_coords(center, cfg)
 
-    slots = None
-    if not mc.insert_dedup or bool(torch.any(center != state.sub_center)):   # sync (dedup)
+    slots, moved = None, True
+    if mc.insert_dedup:
+        differs = torch.any(center != state.sub_center)
+        with span("wait.submap_moved"):
+            moved = bool(differs)
+    if moved:
         (c_pts, cm), (s_pts, sm), slots, _ = _gather_submap(state, coords, cfg, offset)
         # the tail the dedup path appends frame by frame lies near the
         # current pose and needs no re-sort
@@ -410,7 +421,10 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
 
     map_c, map_s = (c_n, s_n) if shard is None else shard.total(torch.stack([c_n, s_n])).unbind()
     cs_n, ss_n = cs_mask.sum(), ss_mask.sum()
-    if bool((map_c > mc.min_map_corner) & (map_s > mc.min_map_surf)):  # sync
+    ready = (map_c > mc.min_map_corner) & (map_s > mc.min_map_surf)
+    with span("wait.map_ready"):
+        ready = bool(ready)
+    if ready:
         # The search radius covers both consumers of these distances: the
         # fits gate at neighbor_dist_sq, the insert gate below at r_dedup^2.
         r_dedup = mc.insert_dedup_factor * max(mc.line_resolution, mc.plane_resolution)
@@ -471,7 +485,8 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
     if mc.insert_dedup:
         # Append this frame's accepted in-window points to the submap cache
         # so it stays exactly the set a fresh gather would produce.
-        radii = torch.tensor([mc.submap_rx, mc.submap_rx, mc.submap_rz], device=dev)
+        with span("wait.window_radii"):   # a copy to the card: waits for it
+            radii = torch.tensor([mc.submap_rx, mc.submap_rx, mc.submap_rz], device=dev)
 
         def in_window(pts_w):
             cc = cube_coord_of(pts_w[:, :3], mc.cube_size)

@@ -17,6 +17,10 @@ moves them to the card; given a raw padded cloud (``pre_gridded=False``)
 or no buckets, the step builds them on the device with the same kernels
 launched.  ``parallel/vloam_shard`` runs this step with the map sharded
 over the ranks of a map mesh.
+
+The step opens the reference's named scopes as spans (``utils/profiling``):
+``visual_odometry``, ``scan_registration``, ``laser_odometry`` and
+``laser_mapping``, timed into the caller's open ``StageTimer`` stage.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from vloam_tpu_torch.models.visual_odometry import (VoState, init_vo_state, vo_s
                                                     vo_step)
 from vloam_tpu_torch.ops.depth_map import DepthBuckets
 from vloam_tpu_torch.ops.scan_registration import extract_features, extract_features_from_grid
+from vloam_tpu_torch.utils.profiling import span
 
 
 class VloamState(NamedTuple):
@@ -140,35 +145,40 @@ def vloam_step(state: VloamState, img, cloud, cloud_mask, ext: fg.Extrinsics, cf
     # ---- visual odometry (vloam_main_node.cpp:147-174) ----------------------
     K = ext.P_rect0[:, :3]
     proj = None if pre_buckets is not None else ext.P_rect0 @ ext.R_rect0 @ ext.cam_T_velo
-    vo_state, cam0_curr_T_cam0_last = vo_step(
-        state.vo, img, K, cfg, lo_prior=state.cam0_curr_LOT_cam0_prev, pre_buckets=pre_buckets,
-        cloud=flat_cloud, cloud_mask=flat_mask, proj=proj)
+    with span("visual_odometry"):
+        vo_state, cam0_curr_T_cam0_last = vo_step(
+            state.vo, img, K, cfg, lo_prior=state.cam0_curr_LOT_cam0_prev,
+            pre_buckets=pre_buckets, cloud=flat_cloud, cloud_mask=flat_mask, proj=proj)
 
     # frame-graph conversion + world accumulation (vloam_main_node.cpp:176-181)
     velo_last_VOT_velo_curr = fg.vo_to_velo(cam0_curr_T_cam0_last, ext)
     world_VOT_base = fg.accumulate_world(state.world_VOT_base, velo_last_VOT_velo_curr)
 
     # ---- scan registration + LO + mapping (:186-190) ------------------------
-    if pre_gridded:
-        feats = extract_features_from_grid(grid, gmask, gmask.sum(dim=1), cfg.scan,
-                                           lf_table=pre_lf_table)
-    else:
-        feats = extract_features(flat_cloud, flat_mask, cfg.scan)
+    with span("scan_registration"):
+        if pre_gridded:
+            feats = extract_features_from_grid(grid, gmask, gmask.sum(dim=1), cfg.scan,
+                                               lf_table=pre_lf_table)
+        else:
+            feats = extract_features(flat_cloud, flat_mask, cfg.scan)
     vo_prior = None if cfg.detach_vo_lo else velo_last_VOT_velo_curr
-    lo_state, lo_delta, world_LOT_base, lo_corr = lo_step(state.lo, feats, cfg, vo_prior=vo_prior)
-    cam0_curr_LOT_cam0_prev = fg.lo_delta_to_cam0(lo_delta, ext)
+    with span("laser_odometry"):
+        lo_state, lo_delta, world_LOT_base, lo_corr = lo_step(state.lo, feats, cfg,
+                                                              vo_prior=vo_prior)
+        cam0_curr_LOT_cam0_prev = fg.lo_delta_to_cam0(lo_delta, ext)
 
     skip = cfg.mapping.skip_frame
-    if skip > 1 and count % skip != 0:
-        # skipped frames get the propagated pose wmap_wodom o wodom
-        # (laser_mapping.cpp:184-208, 824-862)
-        mp_state = state.mp
-        world_MOT_base = geo.pose_compose(state.mp.wmap_wodom, world_LOT_base)
-    else:
-        mp_state, world_MOT_base = mapping_fn(
-            state.mp, feats.less_sharp, feats.less_sharp_mask,
-            feats.less_flat, feats.less_flat_mask, world_LOT_base, cfg,
-        )
+    with span("laser_mapping"):
+        if skip > 1 and count % skip != 0:
+            # skipped frames get the propagated pose wmap_wodom o wodom
+            # (laser_mapping.cpp:184-208, 824-862)
+            mp_state = state.mp
+            world_MOT_base = geo.pose_compose(state.mp.wmap_wodom, world_LOT_base)
+        else:
+            mp_state, world_MOT_base = mapping_fn(
+                state.mp, feats.less_sharp, feats.less_sharp_mask,
+                feats.less_flat, feats.less_flat_mask, world_LOT_base, cfg,
+            )
 
     # ---- trajectory rows rebased to cam0 at the start (vloam_tf.cpp:84-160) -
     anchor = (fg.cam0_init_pose(world_VOT_base, ext) if count == 0

@@ -22,6 +22,10 @@ Per frame the host reads the device once: the three deltas, the three world
 poses and the LO correspondence counts come back as one stacked tensor, and
 the host arrays go up through pinned memory without blocking.
 
+``timer`` (``utils/profiling.StageTimer``) times the host stages and the
+``vloam_step`` stage, and within it the step's spans: its four layers and
+each wait for the card, the fetch's (``wait.fetch``) among them.
+
 The host stages build the depth buckets and the less-flat table in the
 C++ host library (``runtime/native``) when it is available, else in NumPy
 (``data/gridding``); ``run_kitti`` reads and grids frames in the library's
@@ -62,7 +66,7 @@ from vloam_tpu_torch.parallel.loop_closure import (detect_revisits, loop_factors
 from vloam_tpu_torch.parallel.pose_graph import (PoseGraphFactors, concat_factors,
                                                  odometry_factors, optimize_pose_graph_banded)
 from vloam_tpu_torch.runtime import native
-from vloam_tpu_torch.utils.profiling import StageTimer
+from vloam_tpu_torch.utils.profiling import StageTimer, span
 from vloam_tpu_torch.utils.trajectory import TrajectoryWriter
 
 # the VloamOutputs fields the host chains and the degradation warning read
@@ -327,7 +331,10 @@ class VloamDriver:
         the LO correspondence counts, stacked.  The trajectory-row fields
         stay on the device and are None here."""
         packed = torch.cat([getattr(out, name) for name in HOST_POSE_FIELDS]
-                           + [out.lo_corr.to(torch.float32)]).cpu().numpy()
+                           + [out.lo_corr.to(torch.float32)])
+        with span("wait.fetch"):
+            packed = packed.cpu()
+        packed = packed.numpy()
         n = len(HOST_POSE_FIELDS)
         poses = dict(zip(HOST_POSE_FIELDS, packed[:7 * n].reshape(n, 7)))
         return VloamOutputs(vo_pose=None, lo_pose=None, mo_pose=None,
