@@ -33,13 +33,19 @@ In place: the cube array (~477 MB at kitti_hdl64) is scattered into in
 place every frame and never copied; the small count and coordinate arrays
 and the submap caches are rebuilt out of place.
 
-Where the host waits for the card (the two host decisions of a frame, and
-two small copies to the card), the wait runs inside a ``wait.<site>`` span
-(``utils/profiling.span``).
+Where the host waits for the card (the two host decisions of a frame), the
+wait runs inside a ``wait.<site>`` span (``utils/profiling.span``).  The
+small constant vectors the step reads (the grid's dimensions, the window's
+radii) go to the card once a device, not once a frame.
+
+``mapping_step`` runs as segments (``models/segments``): between the two
+host decisions and around each ``knn_pair`` call, which runs eagerly;
+``mapping_segments`` takes the runner.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -47,6 +53,7 @@ import torch
 
 from vloam_tpu_torch import geometry as geo
 from vloam_tpu_torch.config import VloamConfig
+from vloam_tpu_torch.models.segments import eager
 from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_lidar
 from vloam_tpu_torch.ops.fused_knn import knn_pair
 from vloam_tpu_torch.ops.knn import compact_rows, knn, morton_order, morton_sort
@@ -147,12 +154,17 @@ def cube_coord_of(points: torch.Tensor, cube_size: float) -> torch.Tensor:
     return torch.floor(div_exact(points + cube_size / 2.0, cube_size)).to(torch.int64)
 
 
+@functools.lru_cache(maxsize=None)
+def int_vector(values: tuple, device: torch.device) -> torch.Tensor:
+    """A small int64 constant on ``device``, uploaded once (an upload a call
+    is a copy to the card that waits for it)."""
+    return torch.tensor(values, dtype=torch.int64, device=device)
+
+
 def coord_to_slot(coord: torch.Tensor, cfg: VloamConfig) -> torch.Tensor:
     """Block-cyclic slot index for a world cube coordinate."""
     mc = cfg.mapping
-    with span("wait.slot_dims"):   # a copy to the card: waits for it
-        dims = torch.tensor([mc.grid_w, mc.grid_h, mc.grid_d], dtype=torch.int64,
-                            device=coord.device)
+    dims = int_vector((mc.grid_w, mc.grid_h, mc.grid_d), coord.device)
     m = torch.remainder(coord, dims)  # result in [0, dims)
     return m[..., 0] + mc.grid_w * m[..., 1] + mc.grid_w * mc.grid_h * m[..., 2]
 
@@ -382,10 +394,75 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
     ``shard.window_box`` gives the searches the whole window's rebase centre
     and ``shard.merge`` (nbr (M, k, 3), d2 (M, k)) -> the same, merged over
     the ranks, runs after each search."""
-    mc = cfg.mapping
-    dev = pose_wodom.device
-    offset = None if shard is None else shard.slot_offset
+    return mapping_segments(state, corner_in, corner_in_mask, surf_in, surf_in_mask, pose_wodom,
+                            cfg, shard, eager)
 
+
+def mapping_segments(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_mask,
+                     pose_wodom, cfg: VloamConfig, shard, run):
+    """``mapping_step`` as segments called through ``run``
+    (``models/segments``): the frame's start up to the rebuild decision, the
+    window up to the registration decision, the association's queries, one
+    segment an outer iteration, and the map update, which writes the new
+    state into ``state``'s tensors (``out``).  The ``knn_pair`` calls run
+    between the segments."""
+    mc = cfg.mapping
+    pose0, corner_stack, cs_mask, surf_stack, ss_mask, center, differs = run(
+        "laser_mapping.start", lambda st, ci, cm, si, sm, pw: _start(st, ci, cm, si, sm, pw, cfg,
+                                                                       shard),
+        state, corner_in, corner_in_mask, surf_in, surf_in_mask, pose_wodom)
+    moved = True
+    if mc.insert_dedup:
+        with span("wait.submap_moved"):
+            moved = bool(differs)
+    # on the insert-dedup path a rebuilt window is the cache's new base
+    cache = (state.sub_c, state.sub_c_n, state.sub_s, state.sub_s_n) if mc.insert_dedup else None
+    (c_pts, c_n, s_pts, s_n), (c_mask, s_mask, cs_n, ss_n, ready, slots) = run(
+        "laser_mapping.window", lambda st, c, cm, sm, mv: _window(st, c, cm, sm, mv, cfg, shard),
+        state, center, cs_mask, ss_mask, moved, out=(cache, None))
+    with span("wait.map_ready"):
+        ready = bool(ready)
+    nn_c = nn_s = None
+    pose_w = pose0
+    if ready:
+        sorted_c, sorted_s, back_c, back_s, q_c, q_s = run(
+            "laser_mapping.query", _morton_queries, corner_stack, cs_mask, surf_stack, ss_mask,
+            pose0)
+        # The search radius covers both consumers of these distances: the
+        # fits gate at neighbor_dist_sq, the insert gate below at r_dedup^2.
+        r_dedup = mc.insert_dedup_factor * max(mc.line_resolution, mc.plane_resolution)
+        r_prune = max(float(mc.neighbor_dist_sq) ** 0.5, r_dedup) * 1.001
+        (c_cand, c_cmask), (s_cand, s_cmask) = (c_pts[:, :3], c_mask), (s_pts[:, :3], s_mask)
+        if shard is not None:
+            # every rank rebases to the whole window's centre, as the single step does
+            (c_cand, c_cmask), (s_cand, s_cmask) = shard.window_box((c_cand, c_cmask),
+                                                                    (s_cand, s_cmask))
+        for it in range(mc.outer_iters):
+            (d2c, idxc), (d2s, idxs) = knn_pair(
+                q_c, c_cand, c_cmask, mc.n_neighbors, q_s, s_cand, s_cmask, mc.n_neighbors,
+                a_counts=(cs_n, c_n), b_counts=(ss_n, s_n),
+                prune_radius=(r_prune, r_prune),
+            )
+            last = it == mc.outer_iters - 1
+            pose_w, q_c, q_s = run(
+                f"laser_mapping.iter{it}",
+                lambda *a, last=last: _association(*a, cfg, shard, last),
+                pose_w, (d2c, idxc, d2s, idxs), (back_c, back_s), (c_pts, s_pts),
+                (corner_stack, cs_mask, surf_stack, ss_mask), (sorted_c, sorted_s))
+        nn_c, nn_s = q_c, q_s      # the last iteration's 1-NN squared distances
+    new_state = run(
+        "laser_mapping.update",
+        lambda *a: _update(*a, cfg, None if shard is None else shard.slot_offset),
+        state, pose_w, pose_wodom, nn_c, nn_s, (corner_stack, cs_mask, surf_stack, ss_mask),
+        (c_pts, c_n, s_pts, s_n), center, slots, out=state)
+    return new_state, new_state.pose_map
+
+
+def _start(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_mask, pose_wodom,
+           cfg: VloamConfig, shard):
+    """The initial guess, the voxelised feature stacks, the window centre
+    and (on the insert-dedup path) whether it differs from the cache's."""
+    mc = cfg.mapping
     pose0 = geo.pose_compose(state.wmap_wodom, pose_wodom)
     corner_stack, cs_mask = voxel_downsample(
         corner_in, corner_in_mask, mc.line_resolution, mc.corner_stack_cap, max_grid=1024)
@@ -398,14 +475,21 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
         # same on every rank (float atomics may order a rank's sums
         # otherwise, and a pose within rounding of a cube face would split them)
         center = shard.centre(center)
-    coords = _submap_coords(center, cfg)
+    differs = torch.any(center != state.sub_center) if mc.insert_dedup else None
+    return pose0, corner_stack, cs_mask, surf_stack, ss_mask, center, differs
 
-    slots, moved = None, True
-    if mc.insert_dedup:
-        differs = torch.any(center != state.sub_center)
-        with span("wait.submap_moved"):
-            moved = bool(differs)
+
+def _window(state: MapState, center, cs_mask, ss_mask, moved: bool, cfg: VloamConfig, shard):
+    """The submap window: gathered afresh and put into Morton order when
+    ``moved``, else the cache.  Returns ((corner pts, count, surf pts,
+    count), (the masks, the stacks' counts, whether the map can register,
+    the window's slots where it was gathered))."""
+    mc = cfg.mapping
+    dev = center.device
+    slots = None
     if moved:
+        offset = None if shard is None else shard.slot_offset
+        coords = _submap_coords(center, cfg)
         (c_pts, cm), (s_pts, sm), slots, _ = _gather_submap(state, coords, cfg, offset)
         # the tail the dedup path appends frame by frame lies near the
         # current pose and needs no re-sort
@@ -420,49 +504,61 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
     s_mask = torch.arange(s_pts.shape[0], device=dev) < s_n
 
     map_c, map_s = (c_n, s_n) if shard is None else shard.total(torch.stack([c_n, s_n])).unbind()
-    cs_n, ss_n = cs_mask.sum(), ss_mask.sum()
     ready = (map_c > mc.min_map_corner) & (map_s > mc.min_map_surf)
-    with span("wait.map_ready"):
-        ready = bool(ready)
-    if ready:
-        # The search radius covers both consumers of these distances: the
-        # fits gate at neighbor_dist_sq, the insert gate below at r_dedup^2.
-        r_dedup = mc.insert_dedup_factor * max(mc.line_resolution, mc.plane_resolution)
-        r_prune = max(float(mc.neighbor_dist_sq) ** 0.5, r_dedup) * 1.001
-        # The search takes the stacks in Morton order (ring/azimuth order
-        # sweeps the whole scan, so a tile of rows would span the scene; a
-        # rigid transform keeps Morton-ordered tiles compact) and its results
-        # go back to stack order.
-        order_c = morton_order(corner_stack, cs_mask, STACK_MORTON_CELL)
-        order_s = morton_order(surf_stack, ss_mask, STACK_MORTON_CELL)
-        sorted_c, sorted_s = corner_stack[order_c, :3], surf_stack[order_s, :3]
-        back_c, back_s = torch.argsort(order_c), torch.argsort(order_s)
-        (c_cand, c_cmask), (s_cand, s_cmask) = (c_pts[:, :3], c_mask), (s_pts[:, :3], s_mask)
-        if shard is not None:
-            # every rank rebases to the whole window's centre, as the single step does
-            (c_cand, c_cmask), (s_cand, s_cmask) = shard.window_box((c_cand, c_cmask),
-                                                                    (s_cand, s_cmask))
-        pose = pose0
-        for _ in range(mc.outer_iters):
-            (d2c, idxc), (d2s, idxs) = knn_pair(
-                geo.pose_apply(pose, sorted_c), c_cand, c_cmask, mc.n_neighbors,
-                geo.pose_apply(pose, sorted_s), s_cand, s_cmask, mc.n_neighbors,
-                a_counts=(cs_n, c_n), b_counts=(ss_n, s_n),
-                prune_radius=(r_prune, r_prune),
-            )
-            d2c, idxc, d2s, idxs = d2c[back_c], idxc[back_c], d2s[back_s], idxs[back_s]
-            nbr_c, nbr_s = c_pts[idxc, :3], s_pts[idxs, :3]
-            if shard is not None:
-                (nbr_c, d2c), (nbr_s, d2s) = shard.merge(nbr_c, d2c), shard.merge(nbr_s, d2s)
-            p_e, a_e, b_e, v_e = fit_corner_lines(corner_stack, cs_mask, nbr_c, d2c, cfg)
-            p_s, n_s, d_s, v_s = fit_surf_planes(surf_stack, ss_mask, nbr_s, d2s, cfg)
-            pose = solve_pose_gn_lidar(
-                pose, (p_e, a_e, b_e, v_e), (p_s, n_s, d_s, v_s),
-                mc.inner_iters, mc.huber_delta, mc.lm_lambda,
-            )
-        pose_w, nn_c, nn_s = pose, d2c[:, 0], d2s[:, 0]
-    else:
-        pose_w = pose0
+    # only the re-voxelising path reads the slots (it always gathers)
+    slots = None if mc.insert_dedup else slots
+    return (c_pts, c_n, s_pts, s_n), (c_mask, s_mask, cs_mask.sum(), ss_mask.sum(), ready, slots)
+
+
+def _morton_queries(corner_stack, cs_mask, surf_stack, ss_mask, pose0):
+    """The association takes the stacks in Morton order (ring/azimuth order
+    sweeps the whole scan, so a tile of rows would span the scene; a rigid
+    transform keeps Morton-ordered tiles compact) and its results go back
+    to stack order.  Returns (the sorted stacks, the permutations back, the
+    first queries)."""
+    order_c = morton_order(corner_stack, cs_mask, STACK_MORTON_CELL)
+    order_s = morton_order(surf_stack, ss_mask, STACK_MORTON_CELL)
+    sorted_c, sorted_s = corner_stack[order_c, :3], surf_stack[order_s, :3]
+    back_c, back_s = torch.argsort(order_c), torch.argsort(order_s)
+    return (sorted_c, sorted_s, back_c, back_s,
+            geo.pose_apply(pose0, sorted_c), geo.pose_apply(pose0, sorted_s))
+
+
+def _association(pose, found, back, window, stacks, sorted_stacks, cfg: VloamConfig, shard,
+                 last: bool):
+    """One outer iteration after its search: the neighbours back in stack
+    order, the line and plane fits and the GN solve.  Returns (pose, the
+    next queries), or after the last iteration (pose, the 1-NN squared
+    distances the insert gate reads)."""
+    mc = cfg.mapping
+    (d2c, idxc, d2s, idxs), (back_c, back_s), (c_pts, s_pts) = found, back, window
+    corner_stack, cs_mask, surf_stack, ss_mask = stacks
+    d2c, idxc, d2s, idxs = d2c[back_c], idxc[back_c], d2s[back_s], idxs[back_s]
+    nbr_c, nbr_s = c_pts[idxc, :3], s_pts[idxs, :3]
+    if shard is not None:
+        (nbr_c, d2c), (nbr_s, d2s) = shard.merge(nbr_c, d2c), shard.merge(nbr_s, d2s)
+    p_e, a_e, b_e, v_e = fit_corner_lines(corner_stack, cs_mask, nbr_c, d2c, cfg)
+    p_s, n_s, d_s, v_s = fit_surf_planes(surf_stack, ss_mask, nbr_s, d2s, cfg)
+    pose = solve_pose_gn_lidar(
+        pose, (p_e, a_e, b_e, v_e), (p_s, n_s, d_s, v_s),
+        mc.inner_iters, mc.huber_delta, mc.lm_lambda,
+    )
+    if last:
+        return pose, d2c[:, 0], d2s[:, 0]
+    sorted_c, sorted_s = sorted_stacks
+    return pose, geo.pose_apply(pose, sorted_c), geo.pose_apply(pose, sorted_s)
+
+
+def _update(state: MapState, pose_w, pose_wodom, nn_c, nn_s, stacks, window, center, slots,
+            cfg: VloamConfig, offset):
+    """The correction, the insertion of the registered features and the
+    submap cache: the new MapState.  ``nn_c``/``nn_s`` are None where the map
+    could not register (``pose_w`` is then the initial guess)."""
+    mc = cfg.mapping
+    dev = pose_w.device
+    corner_stack, cs_mask, surf_stack, ss_mask = stacks
+    c_pts, c_n, s_pts, s_n = window
+    if nn_c is None:
         nn_c = torch.full(corner_stack.shape[:1], torch.inf, device=dev)
         nn_s = torch.full(surf_stack.shape[:1], torch.inf, device=dev)
 
@@ -485,8 +581,7 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
     if mc.insert_dedup:
         # Append this frame's accepted in-window points to the submap cache
         # so it stays exactly the set a fresh gather would produce.
-        with span("wait.window_radii"):   # a copy to the card: waits for it
-            radii = torch.tensor([mc.submap_rx, mc.submap_rx, mc.submap_rz], device=dev)
+        radii = int_vector((mc.submap_rx, mc.submap_rx, mc.submap_rz), dev)
 
         def in_window(pts_w):
             cc = cube_coord_of(pts_w[:, :3], mc.cube_size)
@@ -508,4 +603,4 @@ def mapping_step(state: MapState, corner_in, corner_in_mask, surf_in, surf_in_ma
         initialized=True,
         sub_c=sub_c, sub_c_n=sub_c_n, sub_s=sub_s, sub_s_n=sub_s_n,
         sub_center=sub_center,
-    ), pose_w
+    )

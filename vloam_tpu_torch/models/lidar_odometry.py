@@ -13,6 +13,9 @@ residuals go through the pose interpolated to s, solved by the generic GN
 (``ops/gauss_newton.solve_pose_gn``, as the reference does: the fused
 kernel assumes s = 1), and the clouds stored for the next frame are moved
 to the sweep end (``lidar_factors.transform_to_end``).
+
+``lo_step`` runs as segments (``models/segments``), cut at its k-NN calls,
+which run eagerly; ``lo_segments`` takes the runner.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from vloam_tpu_torch import geometry as geo
 from vloam_tpu_torch.config import VloamConfig
+from vloam_tpu_torch.models.segments import eager
 from vloam_tpu_torch.ops import lidar_factors
 from vloam_tpu_torch.ops.fused_gn import solve_pose_gn_lidar, solve_pose_gn_lidar_batched
 from vloam_tpu_torch.ops.fused_knn import knn_pair
@@ -119,44 +123,78 @@ def solve_f2f(feats: ScanFeatures, cand_corner, cand_corner_mask, cand_surf,
               cand_surf_mask, pose0, cfg: VloamConfig):
     """Register ``feats`` against the candidate clouds.  Returns
     (pose cand_T_feats, counts (2,) edge/plane correspondences)."""
-    oc = cfg.odom
-    surf_n = _surf_count(cand_surf_mask)
-    if oc.distortion:
-        s_e = sweep_fraction(feats.sharp, cfg)
-        s_s = sweep_fraction(feats.flat, cfg)
+    return _solve_f2f(feats, cand_corner, cand_corner_mask, cand_surf, cand_surf_mask, pose0,
+                      cfg, eager)
 
+
+def _solve_f2f(feats, cand_corner, cand_corner_mask, cand_surf, cand_surf_mask, pose0, cfg,
+               run):
+    """``solve_f2f`` as segments through ``run``: the first queries, then
+    one segment after each ``knn_pair`` call."""
+    oc = cfg.odom
+    surf_n, sweep, q_e, q_s = run(
+        "laser_odometry.query", lambda f, m, p: _first_queries(f, m, p, cfg),
+        feats, cand_surf_mask, pose0)
     pose = pose0
-    for _ in range(oc.outer_iters):
-        if oc.distortion:
-            # TransformToStart with the per-point slerp fraction
-            q_e = lidar_factors.pose_apply_interp(pose, feats.sharp[:, :3], s_e)
-            q_s = lidar_factors.pose_apply_interp(pose, feats.flat[:, :3], s_s)
-        else:
-            q_e = geo.pose_apply(pose, feats.sharp[:, :3])
-            q_s = geo.pose_apply(pose, feats.flat[:, :3])
+    for it in range(oc.outer_iters):
         (d2e, idxe), (d2s, idxs) = knn_pair(
             q_e, cand_corner[:, :3], cand_corner_mask, oc.assoc_k,
             q_s, cand_surf[:, :3], cand_surf_mask, oc.assoc_k_surf,
             b_counts=(None, surf_n),
         )
-        p_e, a_e, b_e, v_e = _edge_correspondences(
-            d2e, idxe, feats.sharp, feats.sharp_mask, cand_corner, cfg)
-        p_s, n_s, d_s, v_s = _plane_correspondences(
-            d2s, idxs, feats.flat, feats.flat_mask, cand_surf, cfg)
-        if oc.distortion:
-            def residuals(pp, p_e=p_e, a_e=a_e, b_e=b_e, v_e=v_e,
-                          p_s=p_s, n_s=n_s, d_s=d_s, v_s=v_s):
-                return ((lidar_factors.edge_residual_interp(pp, p_e, a_e, b_e, s_e), v_e),
-                        (lidar_factors.plane_residual_interp(pp, p_s, n_s, d_s, s_s), v_s))
+        last = it == oc.outer_iters - 1
+        pose, q_e, q_s = run(
+            f"laser_odometry.iter{it}", lambda *a, last=last: _iteration(*a, cfg, last),
+            pose, (d2e, idxe, d2s, idxs), feats, (cand_corner, cand_surf), sweep)
+    return pose, q_e    # after the last iteration: the correspondence counts
 
-            pose = solve_pose_gn(residuals, pose, oc.inner_iters, oc.huber_delta, oc.lm_lambda)
-        else:
-            pose = solve_pose_gn_lidar(
-                pose, (p_e, a_e, b_e, v_e), (p_s, n_s, d_s, v_s),
-                oc.inner_iters, oc.huber_delta, oc.lm_lambda,
-            )
-    counts = torch.stack([v_e.sum(), v_s.sum()]).to(torch.int32)
-    return pose, counts
+
+def _queries(pose, feats: ScanFeatures, sweep, cfg: VloamConfig):
+    """The feature points moved by ``pose``: with distortion, TransformToStart
+    with the per-point slerp fraction."""
+    if cfg.odom.distortion:
+        s_e, s_s = sweep
+        return (lidar_factors.pose_apply_interp(pose, feats.sharp[:, :3], s_e),
+                lidar_factors.pose_apply_interp(pose, feats.flat[:, :3], s_s))
+    return geo.pose_apply(pose, feats.sharp[:, :3]), geo.pose_apply(pose, feats.flat[:, :3])
+
+
+def _first_queries(feats: ScanFeatures, cand_surf_mask, pose0, cfg: VloamConfig):
+    """The less-flat candidates' count, the sweep fractions (with
+    distortion, else None) and the first iteration's queries."""
+    surf_n = _surf_count(cand_surf_mask)
+    sweep = None
+    if cfg.odom.distortion:
+        sweep = sweep_fraction(feats.sharp, cfg), sweep_fraction(feats.flat, cfg)
+    return (surf_n, sweep) + _queries(pose0, feats, sweep, cfg)
+
+
+def _iteration(pose, found, feats: ScanFeatures, cands, sweep, cfg: VloamConfig, last: bool):
+    """One outer iteration after its search: the correspondences and the GN
+    solve.  Returns (pose, the next queries), or after the last iteration
+    (pose, counts (2,), None)."""
+    oc = cfg.odom
+    (d2e, idxe, d2s, idxs), (cand_corner, cand_surf) = found, cands
+    p_e, a_e, b_e, v_e = _edge_correspondences(
+        d2e, idxe, feats.sharp, feats.sharp_mask, cand_corner, cfg)
+    p_s, n_s, d_s, v_s = _plane_correspondences(
+        d2s, idxs, feats.flat, feats.flat_mask, cand_surf, cfg)
+    if oc.distortion:
+        s_e, s_s = sweep
+
+        def residuals(pp):
+            return ((lidar_factors.edge_residual_interp(pp, p_e, a_e, b_e, s_e), v_e),
+                    (lidar_factors.plane_residual_interp(pp, p_s, n_s, d_s, s_s), v_s))
+
+        pose = solve_pose_gn(residuals, pose, oc.inner_iters, oc.huber_delta, oc.lm_lambda)
+    else:
+        pose = solve_pose_gn_lidar(
+            pose, (p_e, a_e, b_e, v_e), (p_s, n_s, d_s, v_s),
+            oc.inner_iters, oc.huber_delta, oc.lm_lambda,
+        )
+    if last:
+        return pose, torch.stack([v_e.sum(), v_s.sum()]).to(torch.int32), None
+    return (pose,) + _queries(pose, feats, sweep, cfg)
 
 
 def sweep_fraction(pts, cfg: VloamConfig):
@@ -218,21 +256,38 @@ def lo_step(state: LoState, feats: ScanFeatures, cfg: VloamConfig, vo_prior=None
     corr_counts (2,)).  ``vo_prior`` (a 7-pose, velodyne frame, last_T_curr)
     seeds the solve in the coupled mode (laser_odometry.cpp:237-250);
     otherwise the previous solution warm-starts it."""
-    dev = state.pose_wodom.device
-    pose0 = state.last_delta if vo_prior is None else vo_prior
-    if state.initialized:
-        delta, corr_counts = solve_f2f(
-            feats, state.last_corner, state.last_corner_mask,
-            state.last_surf, state.last_surf_mask, pose0, cfg,
-        )
-        pose_w = geo.pose_compose(state.pose_wodom, delta)
-        last_delta = delta
-    else:
-        delta = geo.pose_identity(dev)
-        corr_counts = torch.zeros((2,), dtype=torch.int32, device=dev)
-        pose_w = state.pose_wodom
-        last_delta = state.last_delta
+    return lo_segments(state, feats, cfg, vo_prior, eager)
 
+
+def lo_segments(state: LoState, feats: ScanFeatures, cfg: VloamConfig, vo_prior, run):
+    """``lo_step`` as segments through ``run`` (``models/segments``): the
+    solve's, then the new state, written into ``state``'s tensors
+    (``out``).  The first frame only stores its clouds."""
+    if not state.initialized:
+        return run("laser_odometry.first", lambda st, f: _first_frame(st, f, cfg), state, feats,
+                   out=(state, None, None, None))
+    pose0 = state.last_delta if vo_prior is None else vo_prior
+    delta, corr_counts = _solve_f2f(
+        feats, state.last_corner, state.last_corner_mask,
+        state.last_surf, state.last_surf_mask, pose0, cfg, run,
+    )
+    new_state = run("laser_odometry.state", lambda st, f, d: _stored(st, f, d, d, cfg), state,
+                    feats, delta, out=state)
+    return new_state, delta, new_state.pose_wodom, corr_counts
+
+
+def _first_frame(state: LoState, feats: ScanFeatures, cfg: VloamConfig):
+    dev = state.pose_wodom.device
+    delta = geo.pose_identity(dev)
+    corr_counts = torch.zeros((2,), dtype=torch.int32, device=dev)
+    return (_stored(state, feats, delta, state.last_delta, cfg), delta, state.pose_wodom,
+            corr_counts)
+
+
+def _stored(state: LoState, feats: ScanFeatures, delta, last_delta, cfg: VloamConfig) -> LoState:
+    """The state after a frame whose motion is ``delta``: the clouds stored
+    for the next frame and the accumulated pose."""
+    pose_w = geo.pose_compose(state.pose_wodom, delta) if state.initialized else state.pose_wodom
     store_corner, store_surf = feats.less_sharp, feats.less_flat
     if cfg.odom.distortion:
         # the next frame's targets, rigid in their sweep-end anchor; the w
@@ -241,7 +296,7 @@ def lo_step(state: LoState, feats: ScanFeatures, cfg: VloamConfig, vo_prior=None
             torch.cat([lidar_factors.transform_to_end(delta, c[:, :3], sweep_fraction(c, cfg)),
                        c[:, 3:]], dim=1)
             for c in (store_corner, store_surf))
-    new_state = LoState(
+    return LoState(
         last_corner=store_corner,
         last_corner_mask=feats.less_sharp_mask,
         last_surf=store_surf,
@@ -250,4 +305,3 @@ def lo_step(state: LoState, feats: ScanFeatures, cfg: VloamConfig, vo_prior=None
         last_delta=last_delta,
         initialized=True,
     )
-    return new_state, delta, pose_w, corr_counts

@@ -21,6 +21,11 @@ over the ranks of a map mesh.
 The step opens the reference's named scopes as spans (``utils/profiling``):
 ``visual_odometry``, ``scan_registration``, ``laser_odometry`` and
 ``laser_mapping``, timed into the caller's open ``StageTimer`` stage.
+
+``run_step`` is the step as segments (``models/segments``), cut at the
+layers, at MO's two host decisions and at the four ``knn_pair`` calls;
+``vloam_step`` calls them eagerly, ``models/graph_step`` replays them from
+CUDA graphs.
 """
 
 from __future__ import annotations
@@ -34,9 +39,10 @@ from vloam_tpu_torch import geometry as geo
 from vloam_tpu_torch.config import VloamConfig
 from vloam_tpu_torch.models import frame_graph as fg
 from vloam_tpu_torch.models.laser_mapping import (MapState, init_map_state, map_state_from_numpy,
-                                                  mapping_step)
-from vloam_tpu_torch.models.lidar_odometry import (LoState, init_lo_state, lo_state_from_numpy,
-                                                   lo_step)
+                                                  mapping_segments)
+from vloam_tpu_torch.models.lidar_odometry import (LoState, init_lo_state, lo_segments,
+                                                   lo_state_from_numpy)
+from vloam_tpu_torch.models.segments import eager
 from vloam_tpu_torch.models.visual_odometry import (VoState, init_vo_state, vo_state_from_numpy,
                                                     vo_step)
 from vloam_tpu_torch.ops.depth_map import DepthBuckets
@@ -133,8 +139,15 @@ def vloam_step(state: VloamState, img, cloud, cloud_mask, ext: fg.Extrinsics, cf
     depth buckets from the cloud.  ``mapping_fn`` replaces the MO stage,
     ``mapping_step``'s signature (``parallel/vloam_shard`` passes the sharded
     step).  Returns (new_state, VloamOutputs)."""
-    if mapping_fn is None:
-        mapping_fn = mapping_step
+    return run_step(state, img, cloud, cloud_mask, ext, cfg, pre_gridded, pre_buckets,
+                    pre_lf_table, mapping_fn, eager)
+
+
+def run_step(state: VloamState, img, cloud, cloud_mask, ext: fg.Extrinsics, cfg: VloamConfig,
+             pre_gridded: bool, pre_buckets, pre_lf_table, mapping_fn, run):
+    """``vloam_step`` as segments called through ``run``
+    (``models/segments``), each layer's new state written into ``state``'s
+    tensors (``out``)."""
     if pre_gridded:
         grid, gmask = cloud, cloud_mask
         flat_cloud, flat_mask = grid.reshape(-1, 4)[:, :3], gmask.reshape(-1)
@@ -143,29 +156,42 @@ def vloam_step(state: VloamState, img, cloud, cloud_mask, ext: fg.Extrinsics, cf
     count = state.count
 
     # ---- visual odometry (vloam_main_node.cpp:147-174) ----------------------
-    K = ext.P_rect0[:, :3]
-    proj = None if pre_buckets is not None else ext.P_rect0 @ ext.R_rect0 @ ext.cam_T_velo
+    def vo(vo_state, img, lo_prior, buckets, flat_cloud, flat_mask):
+        proj = None if buckets is not None else ext.P_rect0 @ ext.R_rect0 @ ext.cam_T_velo
+        return vo_step(vo_state, img, ext.P_rect0[:, :3], cfg, lo_prior=lo_prior,
+                       pre_buckets=buckets, cloud=flat_cloud, cloud_mask=flat_mask, proj=proj)
+
     with span("visual_odometry"):
-        vo_state, cam0_curr_T_cam0_last = vo_step(
-            state.vo, img, K, cfg, lo_prior=state.cam0_curr_LOT_cam0_prev,
-            pre_buckets=pre_buckets, cloud=flat_cloud, cloud_mask=flat_mask, proj=proj)
+        # vo_step reads its counter only as count > 0 and count >= 2: clamped
+        # at 2, every later frame runs one variant
+        vo_state, cam0_curr_T_cam0_last = run(
+            "visual_odometry", vo, state.vo._replace(count=min(state.vo.count, 2)), img,
+            state.cam0_curr_LOT_cam0_prev, pre_buckets, flat_cloud, flat_mask,
+            out=(state.vo, None))
+    vo_state = vo_state._replace(count=state.vo.count + 1)
 
     # frame-graph conversion + world accumulation (vloam_main_node.cpp:176-181)
-    velo_last_VOT_velo_curr = fg.vo_to_velo(cam0_curr_T_cam0_last, ext)
-    world_VOT_base = fg.accumulate_world(state.world_VOT_base, velo_last_VOT_velo_curr)
+    velo_last_VOT_velo_curr, world_VOT_base = run(
+        "frame_graph.vo", lambda pose, world: _vo_in_world(pose, world, ext),
+        cam0_curr_T_cam0_last, state.world_VOT_base, out=(None, state.world_VOT_base))
 
     # ---- scan registration + LO + mapping (:186-190) ------------------------
     with span("scan_registration"):
         if pre_gridded:
-            feats = extract_features_from_grid(grid, gmask, gmask.sum(dim=1), cfg.scan,
-                                               lf_table=pre_lf_table)
+            feats = run("scan_registration",
+                        lambda g, m, lf: extract_features_from_grid(g, m, m.sum(dim=1), cfg.scan,
+                                                                    lf_table=lf),
+                        grid, gmask, pre_lf_table)
         else:
-            feats = extract_features(flat_cloud, flat_mask, cfg.scan)
+            feats = run("scan_registration", lambda c, m: extract_features(c, m, cfg.scan),
+                        flat_cloud, flat_mask)
     vo_prior = None if cfg.detach_vo_lo else velo_last_VOT_velo_curr
     with span("laser_odometry"):
-        lo_state, lo_delta, world_LOT_base, lo_corr = lo_step(state.lo, feats, cfg,
-                                                              vo_prior=vo_prior)
-        cam0_curr_LOT_cam0_prev = fg.lo_delta_to_cam0(lo_delta, ext)
+        lo_state, lo_delta, world_LOT_base, lo_corr = lo_segments(state.lo, feats, cfg, vo_prior,
+                                                                  run)
+        cam0_curr_LOT_cam0_prev = run(
+            "frame_graph.lo", lambda delta: fg.lo_delta_to_cam0(delta, ext), lo_delta,
+            out=state.cam0_curr_LOT_cam0_prev)
 
     skip = cfg.mapping.skip_frame
     with span("laser_mapping"):
@@ -173,16 +199,19 @@ def vloam_step(state: VloamState, img, cloud, cloud_mask, ext: fg.Extrinsics, cf
             # skipped frames get the propagated pose wmap_wodom o wodom
             # (laser_mapping.cpp:184-208, 824-862)
             mp_state = state.mp
-            world_MOT_base = geo.pose_compose(state.mp.wmap_wodom, world_LOT_base)
+            world_MOT_base = run("laser_mapping.skipped", geo.pose_compose, state.mp.wmap_wodom,
+                                 world_LOT_base)
         else:
-            mp_state, world_MOT_base = mapping_fn(
-                state.mp, feats.less_sharp, feats.less_sharp_mask,
-                feats.less_flat, feats.less_flat_mask, world_LOT_base, cfg,
-            )
+            args = (state.mp, feats.less_sharp, feats.less_sharp_mask,
+                    feats.less_flat, feats.less_flat_mask, world_LOT_base, cfg)
+            mp_state, world_MOT_base = (mapping_segments(*args, None, run) if mapping_fn is None
+                                        else mapping_fn(*args))
 
     # ---- trajectory rows rebased to cam0 at the start (vloam_tf.cpp:84-160) -
-    anchor = (fg.cam0_init_pose(world_VOT_base, ext) if count == 0
-              else state.cam0_init_T_cam0_start)
+    anchor, (vo_pose, lo_pose, mo_pose) = run(
+        "frame_graph.rows", lambda *a: _rows(*a, ext), count == 0, world_VOT_base,
+        world_LOT_base, world_MOT_base, state.cam0_init_T_cam0_start,
+        out=(state.cam0_init_T_cam0_start, None))
     new_state = VloamState(
         vo=vo_state, lo=lo_state, mp=mp_state,
         world_VOT_base=world_VOT_base,
@@ -191,11 +220,23 @@ def vloam_step(state: VloamState, img, cloud, cloud_mask, ext: fg.Extrinsics, cf
         count=count + 1,
     )
     return new_state, VloamOutputs(
-        vo_pose=fg.world_to_cam0_start(world_VOT_base, anchor, ext),
-        lo_pose=fg.world_to_cam0_start(world_LOT_base, anchor, ext),
-        mo_pose=fg.world_to_cam0_start(world_MOT_base, anchor, ext),
+        vo_pose=vo_pose, lo_pose=lo_pose, mo_pose=mo_pose,
         world_vo=world_VOT_base, world_lo=world_LOT_base, world_mo=world_MOT_base,
         lo_corr=lo_corr,
         vo_delta=velo_last_VOT_velo_curr, lo_delta=lo_delta,
         mo_correction=mp_state.wmap_wodom,
     )
+
+
+def _vo_in_world(cam0_curr_T_cam0_last, world_VOT_base, ext: fg.Extrinsics):
+    """VO's motion in the velodyne frame and the VO world pose it moves."""
+    velo_last_VOT_velo_curr = fg.vo_to_velo(cam0_curr_T_cam0_last, ext)
+    return velo_last_VOT_velo_curr, fg.accumulate_world(world_VOT_base, velo_last_VOT_velo_curr)
+
+
+def _rows(first: bool, world_vo, world_lo, world_mo, anchor, ext: fg.Extrinsics):
+    """The rebase anchor (captured at frame 0) and the three trajectory rows."""
+    if first:
+        anchor = fg.cam0_init_pose(world_vo, ext)
+    return anchor, tuple(fg.world_to_cam0_start(w, anchor, ext)
+                         for w in (world_vo, world_lo, world_mo))

@@ -26,6 +26,12 @@ the host arrays go up through pinned memory without blocking.
 ``vloam_step`` stage, and within it the step's spans: its four layers and
 each wait for the card, the fetch's (``wait.fetch``) among them.
 
+Where ``models/graph_step.engages`` holds (a CUDA device; no distortion,
+the insert-dedup map), ``process_grid`` replays the steady step from CUDA
+graphs (``GraphStep``, ``graph_step`` span) in place of eager
+``vloam_step``: the host arrays go up into its fixed buffers, and the state
+lives at fixed addresses.
+
 The host stages build the depth buckets and the less-flat table in the
 C++ host library (``runtime/native``) when it is available, else in NumPy
 (``data/gridding``); ``run_kitti`` reads and grids frames in the library's
@@ -56,6 +62,7 @@ from vloam_tpu_torch.data import synthetic
 from vloam_tpu_torch.data.gridding import depth_buckets, grid_cloud, less_flat_voxel_table
 from vloam_tpu_torch.data.stream import camera_matrices
 from vloam_tpu_torch.models import frame_graph as fg
+from vloam_tpu_torch.models.graph_step import GraphStep, engages
 from vloam_tpu_torch.models.vloam import (VloamOutputs, host_to_device, init_vloam_state,
                                           vloam_step)
 from vloam_tpu_torch.ops import image_ops
@@ -134,6 +141,8 @@ class VloamDriver:
         self.cfg = cfg
         self.ext = fg.Extrinsics(*(x.to(self.device) for x in ext))
         self.state = init_vloam_state(cfg, self.device)   # the cube map is updated in place
+        self._graph = (GraphStep(cfg, self.ext, self.state, self.device)
+                       if engages(cfg, self.device) else None)
         self.timer = StageTimer()
         self.count = 0
         self.checkpoint_dir = checkpoint_dir
@@ -228,7 +237,8 @@ class VloamDriver:
         append mode.  Returns the frame index to resume from."""
         from vloam_tpu_torch.utils.checkpoint import load_checkpoint
 
-        self.state, self.count = load_checkpoint(path, self.state)
+        state, self.count = load_checkpoint(path, self.state)
+        self.state = state if self._graph is None else self._graph.load(state)
         self.load_host_state(path.rstrip("/") + "_driver.npz")
         for w in self.writers.values():
             w.resume_at(self.count)
@@ -274,7 +284,7 @@ class VloamDriver:
     ) -> VloamOutputs:
         """Feed a pre-built ring grid.  Returns the step's outputs (tensors
         on the device); what the host read of them is ``self.host_out``."""
-        cfg, dev = self.cfg, self.device
+        cfg = self.cfg
         if image is None:
             img = np.zeros((cfg.visual.img_height, cfg.visual.img_width), np.float32)
         else:
@@ -285,21 +295,26 @@ class VloamDriver:
         if self.loop_closure and self.count % self.keyframe_every == 0:
             self._keyframes[self.count] = (grid, gmask)
         use_native = native.available()
+        up = self._upload
         with self.timer.stage("host_buckets"):
             # VO depth buckets built host-side, like the ring gridding
             make = native.depth_buckets_native if use_native else depth_buckets
             bu, bv, bz, bc = make(grid.reshape(-1, 4), gmask.reshape(-1), self._proj, cfg.visual)
-            buckets = DepthBuckets(*(host_to_device(b, dev) for b in (bu, bv, bz, bc)))
+            buckets = DepthBuckets(*(up(f"buckets.{i}", b) for i, b in enumerate((bu, bv, bz, bc))))
         with self.timer.stage("host_lf_voxel"):
             make = native.lf_voxel_table_native if use_native else less_flat_voxel_table
             sg, bs, nr = make(grid, gmask, cfg.scan)
-            lf_table = (host_to_device(sg, dev), host_to_device(bs, dev), int(nr))
+            # the run count goes up as a tensor: a number would be a constant of a graph
+            lf_table = (up("lf_table.slots", sg), up("lf_table.sums", bs),
+                        up("lf_table.runs", np.int64(nr)))
         with self.timer.stage("vloam_step"):
-            self.state, out = vloam_step(
-                self.state, host_to_device(img, dev), host_to_device(grid, dev),
-                host_to_device(gmask, dev), self.ext, cfg, pre_gridded=True,
-                pre_buckets=buckets, pre_lf_table=lf_table,
-            )
+            img_t, grid_t, gmask_t = up("image", img), up("grid", grid), up("gmask", gmask)
+            if self._graph is None:
+                self.state, out = vloam_step(self.state, img_t, grid_t, gmask_t, self.ext, cfg,
+                                             pre_gridded=True, pre_buckets=buckets,
+                                             pre_lf_table=lf_table)
+            else:
+                self.state, out = self._graph.step(img_t, grid_t, gmask_t, buckets, lf_table)
             self.host_out = host = self._fetch(out)   # waits for the frame
         if cfg.verbose_level >= 1 and self.count > 0:
             # degradation warning (laser_odometry.cpp:493-496: < 10
@@ -323,6 +338,13 @@ class VloamDriver:
         if self.checkpoint_dir and self.checkpoint_every and self.count % self.checkpoint_every == 0:
             self.save_checkpoint()
         return out
+
+    def _upload(self, name: str, x: np.ndarray) -> torch.Tensor:
+        """A host array of the frame on the device: into the graph step's
+        buffer ``name``, or as a tensor of its own."""
+        if self._graph is None:
+            return host_to_device(x, self.device)
+        return self._graph.upload(name, x)
 
     @staticmethod
     def _fetch(out: VloamOutputs) -> VloamOutputs:
@@ -533,6 +555,8 @@ class VloamDriver:
         return refined
 
     def close(self):
+        if self._graph is not None:
+            self._graph.close()
         if self.refine:
             self.refine_trajectory()
         for w in self.writers.values():
