@@ -120,3 +120,57 @@ def test_timeline_on_the_profilers_clock():
         assert abs(s - twin_s) < 100_000 and abs(e - twin_e) < 100_000, (name, s - twin_s,
                                                                          e - twin_e)
     assert seen == {"vloam_step": 10, "visual_odometry": 10, "wait.fetch": 10}
+
+
+class _FakeEvent:
+    """A CUDA timing event on a fake clock: ``record`` stamps the clock,
+    ``query`` says whether the fake card has passed the stamp."""
+    clock, done = 0.0, 0.0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = _FakeEvent.clock
+
+    def query(self):
+        return self.t is not None and self.t <= _FakeEvent.done
+
+    def elapsed_time(self, end):
+        assert self.query() and end.query()
+        return end.t - self.t
+
+
+def test_device_span_is_read_once_the_card_has_passed_it(monkeypatch):
+    """On a card, ``device_span`` leaves two events pending and is read, with
+    no synchronisation, when a later stage or span of its timer closes
+    after the card has passed its end: into ``dev.<name>``, under the stage
+    or span it ran in, and not on the timeline.  Inside a capture it
+    records nothing."""
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    monkeypatch.setattr(_FakeEvent, "clock", 0.0)
+    monkeypatch.setattr(_FakeEvent, "done", -1.0)
+    timer = StageTimer()
+    with timer.stage("vloam_step"):
+        with span("visual_odometry"), profiling.device_span("visual_odometry", "cuda:0"):
+            _FakeEvent.clock = 2.5          # the card's work the block queued
+        assert len(timer.pending) == 1      # not passed yet: kept pending
+        with span("laser_mapping"):
+            pass
+        assert timer.count["dev.visual_odometry"] == 0
+        _FakeEvent.done = 2.5               # the fetch waited for the frame
+        with span("wait.fetch"):
+            pass
+        assert timer.count["dev.visual_odometry"] == 1 and not timer.pending
+        capturing[0] = True
+        with profiling.device_span("visual_odometry", "cuda:0"):
+            pass
+        assert not timer.pending
+    assert timer.total_ms["dev.visual_odometry"] == 2.5
+    assert timer.parent["dev.visual_odometry"] == "visual_odometry"
+    assert "dev.visual_odometry" not in {name for name, _, _ in timer.timeline}
+    assert "dev.visual_odometry" in timer.summary()

@@ -20,7 +20,8 @@ over the ranks of a map mesh.
 
 The step opens the reference's named scopes as spans (``utils/profiling``):
 ``visual_odometry``, ``scan_registration``, ``laser_odometry`` and
-``laser_mapping``, timed into the caller's open ``StageTimer`` stage.
+``laser_mapping``, timed into the caller's open ``StageTimer`` stage; VO's
+is also timed on the card (``device_span``: ``dev.visual_odometry``).
 
 ``run_step`` is the step as segments (``models/segments``), cut at the
 layers, at MO's two host decisions and at the four ``knn_pair`` calls;
@@ -47,7 +48,7 @@ from vloam_tpu_torch.models.visual_odometry import (VoState, init_vo_state, vo_s
                                                     vo_step)
 from vloam_tpu_torch.ops.depth_map import DepthBuckets
 from vloam_tpu_torch.ops.scan_registration import extract_features, extract_features_from_grid
-from vloam_tpu_torch.utils.profiling import span
+from vloam_tpu_torch.utils.profiling import device_span, span
 
 
 class VloamState(NamedTuple):
@@ -161,7 +162,7 @@ def run_step(state: VloamState, img, cloud, cloud_mask, ext: fg.Extrinsics, cfg:
         return vo_step(vo_state, img, ext.P_rect0[:, :3], cfg, lo_prior=lo_prior,
                        pre_buckets=buckets, cloud=flat_cloud, cloud_mask=flat_mask, proj=proj)
 
-    with span("visual_odometry"):
+    with span("visual_odometry"), device_span("visual_odometry", img.device):
         # vo_step reads its counter only as count > 0 and count >= 2: clamped
         # at 2, every later frame runs one variant
         vo_state, cam0_curr_T_cam0_last = run(

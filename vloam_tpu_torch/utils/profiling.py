@@ -14,6 +14,14 @@ the profiler converts its events to, taken next to the range's own stamps
 (the start just after the range opens, the end just after it closes), so a
 reader can lay the timeline over a device trace and say what the host was
 doing in each of the card's idle gaps.
+
+On the card a host span around a replayed CUDA graph times only the launch.
+``device_span(name, device)`` times the card's work instead: two CUDA timing
+events on the current stream around the block (none inside a capture), read
+without a synchronisation once a later stage or span of the same timer
+closes after the card has passed both, and recorded into that timer as
+``dev.<name>``.  The driver's ``wait.fetch`` waits for the whole frame, so
+each frame's pairs are read within the frame.
 """
 
 from __future__ import annotations
@@ -51,11 +59,10 @@ def _timed(timer: "StageTimer", name: str, stack: list):
         t1, w1 = time.perf_counter_ns(), time.time_ns()
     finally:
         stack.pop()
-    dt = (t1 - t0) * 1e-6
-    timer.total_ms[name] += dt
-    timer.count[name] += 1
-    timer.max_ms[name] = max(timer.max_ms[name], dt)
+    timer._add(name, (t1 - t0) * 1e-6)
     timer.timeline.append((name, w0, w1))
+    if timer.pending:
+        timer._read_device_spans()
 
 
 class StageTimer:
@@ -65,6 +72,23 @@ class StageTimer:
         self.max_ms = defaultdict(float)
         self.parent = {}   # name -> the stage or span it first ran in (None: a stage)
         self.timeline = deque(maxlen=TIMELINE_LEN)
+        self.pending = []  # (name, start event, end event) of device spans not yet read
+
+    def _add(self, name: str, ms: float) -> None:
+        self.total_ms[name] += ms
+        self.count[name] += 1
+        self.max_ms[name] = max(self.max_ms[name], ms)
+
+    def _read_device_spans(self) -> None:
+        """Record the device spans whose end event the card has passed
+        (``query`` does not synchronise); keep the others pending."""
+        left = []
+        for name, start, end in self.pending:
+            if end.query():
+                self._add(name, start.elapsed_time(end))
+            else:
+                left.append((name, start, end))
+        self.pending = left
 
     def stage(self, name: str):
         return _timed(self, name, _stack())
@@ -102,3 +126,24 @@ def span(name: str):
         return
     with _timed(stack[-1][0], name, stack):
         yield
+
+
+@contextlib.contextmanager
+def device_span(name: str, device):
+    """The card's time for the work the block puts on ``device``'s current
+    stream, recorded as ``dev.<name>`` into the innermost stage's timer once
+    the card has passed it (see the module's docstring).  Nothing on a CPU
+    device, with no stage open, or inside a CUDA graph capture."""
+    stack = _stack()
+    dev = torch.device(device)
+    if not stack or dev.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        yield
+        return
+    timer, parent = stack[-1]
+    stream = torch.cuda.current_stream(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    yield
+    end.record(stream)
+    timer.parent.setdefault(f"dev.{name}", parent)
+    timer.pending.append((f"dev.{name}", start, end))
