@@ -168,6 +168,7 @@ def test_sweep_fraction_agrees_across_input_paths():
     grids = {"numpy": gridding.grid_cloud(pts, cfg.scan)[:2]}
     if native.available():
         grids["native"] = native.grid_cloud_native(pts, cfg.scan)[:2]
+        grids["threaded"] = native.grid_cloud_threaded(pts, cfg.scan)[:2]
     g, gm, _ = tsr.organize_scan(torch.tensor(p), torch.tensor(m), cfg.scan)
     grids["device"] = (g.numpy(), gm.numpy())
     ref_g, ref_m = grids["numpy"]

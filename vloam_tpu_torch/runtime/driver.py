@@ -35,8 +35,8 @@ lives at fixed addresses.
 The host stages build the depth buckets and the less-flat table in the
 C++ host library (``runtime/native``) when it is available, else in NumPy
 (``data/gridding``); ``run_kitti`` reads and grids frames in the library's
-prefetcher threads.  ``process`` grids the raw cloud in NumPy, as the
-reference driver does.
+prefetcher threads.  ``process`` grids the raw cloud in the library's
+threaded float32 gridder, or in NumPy without the library.
 
 With ``debug_dir`` and ``debug_every``, every ``debug_every``-th frame
 writes keypoint, optical-flow and lidar-depth PNGs (``dump_debug``): the
@@ -245,9 +245,19 @@ class VloamDriver:
         return self.count
 
     def process(self, image: np.ndarray | None, cloud: np.ndarray) -> VloamOutputs:
+        """Grid a raw cloud (N, 3) or (N, 4) on the host and feed the grid to
+        ``process_grid``.  The grid comes from the library's threaded gridder
+        (span ``grid.native``) where the library is available, else from
+        NumPy; either way fresh arrays, so a keyframe kept by
+        ``process_grid`` is never overwritten by a later frame."""
         cfg = self.cfg
         with self.timer.stage("host_grid"):
-            grid, gmask, _ = grid_cloud(cloud.astype(np.float32), cfg.scan)
+            cloud = np.ascontiguousarray(cloud, np.float32)
+            if native.available():
+                with span("grid.native"):
+                    grid, gmask, _ = native.grid_cloud_threaded(cloud, cfg.scan)
+            else:
+                grid, gmask, _ = grid_cloud(cloud, cfg.scan)
         return self.process_grid(image, grid, gmask)
 
     def dump_debug(self, image: np.ndarray, grid: np.ndarray, gmask: np.ndarray) -> None:
